@@ -1,0 +1,102 @@
+"""Carry trained weights from the JAX package's flax parameter trees into the
+port's modules.
+
+Counterpart of ``acoustic_locating_vq_vae_tpu/eval/torch_export.py:36-132``,
+with the port's own key names (which are the reference's). The tree comes in
+as nested dicts of arrays (numpy, or anything ``np.asarray`` takes); nothing
+of JAX is imported. Layout changes:
+
+  * flax conv kernel (k, in, out) -> torch conv weight (out, in, k);
+  * flax dense kernel (in, out) -> torch linear weight (out, in);
+  * the tied residual block is copied to every layer index, as the
+    reference's shared-instance ModuleList stores it;
+  * the codebook comes from ``_vq/codebook``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax"]
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _key(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def _conv(tree, name: str, out: Dict[str, torch.Tensor]) -> None:
+    sub = tree["Conv_0"]
+    out[f"{name}.weight"] = _tensor(np.asarray(sub["kernel"]).transpose(2, 1, 0))
+    if "bias" in sub:
+        out[f"{name}.bias"] = _tensor(sub["bias"])
+
+
+def _stack(tree, prefix: str, num_layers: int, out: Dict[str, torch.Tensor]) -> None:
+    if "residual" in tree:  # tied: one block at every index
+        blocks = [tree["residual"]] * num_layers
+    else:
+        blocks = [tree[f"residual_{i}"] for i in range(num_layers)]
+    for i, b in enumerate(blocks):
+        base = _key(prefix, f"_layers.{i}._block")
+        # Sequential(relu, conv_1, relu, conv_2): convs at indices 1 and 3
+        _conv(b["conv_1"], f"{base}.1", out)
+        _conv(b["conv_2"], f"{base}.3", out)
+
+
+def _encoder(tree, prefix: str, num_layers: int, out: Dict[str, torch.Tensor]) -> None:
+    _conv(tree["conv_1"], _key(prefix, "_conv_1"), out)
+    _stack(tree["residual_stack"], _key(prefix, "_residual_stack"), num_layers, out)
+
+
+def _vqvae(tree, prefix: str, num_layers: int, out: Dict[str, torch.Tensor]) -> None:
+    """Encode half only: a decoder in the tree is not read."""
+    _encoder(tree["_encoder"], _key(prefix, "_encoder"), num_layers, out)
+    _conv(tree["_pre_vq_conv"], _key(prefix, "_pre_vq_conv"), out)
+    out[_key(prefix, "_vq._embedding.weight")] = _tensor(tree["_vq"]["codebook"])
+
+
+def _location(tree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    for i in (1, 2, 3, 4, 5):
+        sub = tree[f"fc_{i}"]["Dense_0"]
+        out[_key(prefix, f"fc_{i}.weight")] = _tensor(np.asarray(sub["kernel"]).T)
+        out[_key(prefix, f"fc_{i}.bias")] = _tensor(sub["bias"])
+
+
+def params_from_jax(tree: Any, num_residual_layers: int = 2) -> Dict[str, torch.Tensor]:
+    """The port's state dict for a flax ``params`` tree of the JAX package.
+
+    The tree's top-level names say which model it is:
+
+    * ``rir_model`` and ``head``: ``JointLocationModel``;
+    * ``rir_model`` alone (an ``EchoedSpeechReconModel`` composite): its RIR
+      branch as a ``ConvolutionalVQVAE``, for the frozen localizer; the
+      speech branch and the decoders are not read;
+    * ``_encoder``: ``ConvolutionalVQVAE`` (encode half);
+    * ``fc_1``: ``LocationModule``;
+    * ``conv_1`` and ``residual_stack``: ``ConvolutionalEncoder``.
+
+    ``num_residual_layers`` is the stack depth the tied block is copied to
+    (2 in both localizers' RIR branch).
+    """
+    out: Dict[str, torch.Tensor] = {}
+    if "rir_model" in tree and "head" in tree:
+        _vqvae(tree["rir_model"], "rir_model", num_residual_layers, out)
+        _location(tree["head"], "head", out)
+    elif "rir_model" in tree:
+        _vqvae(tree["rir_model"], "", num_residual_layers, out)
+    elif "_encoder" in tree:
+        _vqvae(tree, "", num_residual_layers, out)
+    elif "fc_1" in tree:
+        _location(tree, "", out)
+    elif "conv_1" in tree and "residual_stack" in tree:
+        _encoder(tree, "", num_residual_layers, out)
+    else:
+        raise ValueError(f"unrecognised parameter tree with top-level names {sorted(tree)}")
+    return out

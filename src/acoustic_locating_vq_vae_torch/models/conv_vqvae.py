@@ -1,0 +1,128 @@
+"""ConvolutionalVQVAE, encode half, and its encoder.
+
+Counterpart of ``acoustic_locating_vq_vae_tpu/models/conv_vqvae.py`` (reference:
+vq_vae/convolutional_vq_vae.py:18-105, convolutional_encoder.py:7-44). Only the
+encode half is ported: encoder, pre-VQ conv and quantizer, which is all the
+localizers run. The decoder, ``ConvTranspose1d`` and ``Jitter`` come with the
+training slice.
+
+Layout is channels-first ``(B, C, L)`` throughout, the public layout of both
+packages; module attributes carry the reference's state-dict keys
+(``_encoder._conv_1.weight``, ``_pre_vq_conv.weight``,
+``_vq._embedding.weight``, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.conv import Conv1d
+from ..ops.residual import ResidualStack
+from ..ops.vq import VectorQuantizer, VQOutput
+
+__all__ = ["ConvolutionalEncoder", "ConvolutionalVQVAE"]
+
+
+class ConvolutionalEncoder(nn.Module):
+    """Conv3 -> ResidualStack with an extra outer skip
+    (convolutional_encoder.py:39-44): ``(B, C_in, L) -> (B, H, L)``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        num_hiddens: int,
+        num_residual_layers: int,
+        num_residual_hiddens: int,
+        tied: bool = True,
+        compat_init: bool = True,
+        compat_inplace_relu: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        # the reference quirk needs a first block to have mutated x1 in place
+        self.skip_relu = compat_inplace_relu and num_residual_layers > 0
+        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator)
+        self._residual_stack = ResidualStack(
+            num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
+            compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self._conv_1(x)
+        out = self._residual_stack(x1)
+        # Reference quirk (ops/residual.py): the first block's in-place ReLU
+        # mutated x1, so the outer skip adds relu(x1).
+        return out + (F.relu(x1) if self.skip_relu else x1)
+
+
+class ConvolutionalVQVAE(nn.Module):
+    """Encoder -> pre-VQ conv -> VQ (convolutional_vq_vae.py:93-97).
+
+    ``compat_vq_flatten=True`` is the reference's memory-order flatten
+    (vector_quantizer.py:32): the quantizer reshapes the channels-first
+    ``(B, D, L)`` latent to ``(-1, D)`` without permuting, so each row is D
+    consecutive samples along time. ``False`` quantizes proper channel vectors
+    (the latent permuted to ``(B, L, D)`` first). Both give B*L rows."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        num_hiddens: int,
+        embedding_dim: int,
+        num_residual_layers: int,
+        num_residual_hiddens: int,
+        commitment_cost: float,
+        num_embeddings: int,
+        tied: bool = True,
+        compat_init: bool = True,
+        compat_inplace_relu: bool = True,
+        compat_vq_flatten: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.num_embeddings = num_embeddings
+        self.compat_vq_flatten = compat_vq_flatten
+        self._encoder = ConvolutionalEncoder(
+            in_channels, num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
+            compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
+        )
+        self._pre_vq_conv = Conv1d(num_hiddens, embedding_dim, 3, padding=1, generator=generator)
+        self._vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost, generator=generator)
+
+    def pre_vq_latent(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, C, L) -> (B, D, L)``: the latent the quantizer reads."""
+        return self._pre_vq_conv(self._encoder(x))
+
+    def _encode(self, x: torch.Tensor, need_encodings: bool = False) -> VQOutput:
+        """VQ output whose ``quantized`` is channels-first ``(B, D, L)``."""
+        z = self.pre_vq_latent(x)
+        if self.compat_vq_flatten:
+            # the quantizer's reshape(-1, D) of the contiguous (B, D, L) latent
+            # is the reference's view(-1, D)
+            return self._vq(z, need_encodings=need_encodings)
+        out = self._vq(z.transpose(1, 2), need_encodings=need_encodings)
+        return out._replace(quantized=out.quantized.transpose(1, 2))
+
+    def get_latent_representation(self, x: torch.Tensor, need_encodings: bool = True):
+        """(loss, quantized (B, D, L), perplexity, encodings (B*L, K) or None),
+        the reference return layout (convolutional_vq_vae.py:102-105)."""
+        out = self._encode(x, need_encodings=need_encodings)
+        return out.loss, out.quantized, out.perplexity, out.encodings
+
+    def get_latent_codes(self, x: torch.Tensor) -> torch.Tensor:
+        """VQ code ids, ``(B, rows_per_sample)``."""
+        return self._encode(x).indices.reshape(x.shape[0], -1)
+
+    def codes_to_latent(self, codes: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`get_latent_codes`: ``(B, R)`` ids -> quantized
+        latent ``(B, D, L)`` in the model's flatten mode."""
+        b, r = codes.shape
+        q = self._vq.lookup(codes).reshape(b, r * self.embedding_dim)
+        if self.compat_vq_flatten:
+            return q.reshape(b, self.embedding_dim, r)
+        return q.reshape(b, r, self.embedding_dim).transpose(1, 2)

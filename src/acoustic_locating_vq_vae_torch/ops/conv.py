@@ -1,0 +1,68 @@
+"""Length-preserving 1-D conv and dense layers.
+
+Counterpart of ``acoustic_locating_vq_vae_tpu/ops/conv.py`` (``Conv1d``,
+``Dense``). The JAX package runs channels-last; here the layout is torch's
+own channels-first ``(B, C, L)``, which is also the public layout of both
+packages. Parameters are named ``weight`` / ``bias`` with torch's shapes
+(conv ``(out, in, k)``, dense ``(out, in)``) so the modules carry the
+reference's state-dict keys. ``ConvTranspose1d`` belongs to the decoder and
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .initializers import kaiming_uniform_relu_, torch_default_
+
+__all__ = ["Conv1d", "Dense"]
+
+
+class Conv1d(nn.Module):
+    """Stride-1 1-D convolution ``(B, C_in, L) -> (B, C_out, L)``.
+
+    ``init_mode="kaiming"`` is the reference's explicit kaiming-uniform relu
+    init; ``"torch_default"`` is torch's module default. The bias always takes
+    torch's default init."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int = 3,
+        padding: int = 1,
+        bias: bool = True,
+        init_mode: str = "kaiming",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if init_mode not in ("kaiming", "torch_default"):
+            raise ValueError(f"unknown init_mode {init_mode!r}")
+        self.padding = padding
+        fan_in = kernel_size * in_channels
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
+        init = kaiming_uniform_relu_ if init_mode == "kaiming" else torch_default_
+        init(self.weight, fan_in, generator)
+        if bias:
+            self.bias = nn.Parameter(torch_default_(torch.empty(out_channels), fan_in, generator))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.weight, self.bias, padding=self.padding)
+
+
+class Dense(nn.Module):
+    """Linear layer with torch's default init (location_model.py:10-18)."""
+
+    def __init__(self, in_features: int, out_features: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch_default_(torch.empty(out_features, in_features), in_features, generator))
+        self.bias = nn.Parameter(torch_default_(torch.empty(out_features), in_features, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
