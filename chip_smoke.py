@@ -10,13 +10,30 @@ nothing of JAX. Phases, one line each (more for detail):
 1. device and build: the card's name and power limit (nvidia-smi), and the
    build of every kernel, one nvcc per source, all started together;
 2. kernel vs plain on the card: the nearest-codebook kernel against the plain
-   PyTorch version at serving shapes, ragged shapes and all-ties;
+   PyTorch version at the serving shapes, the speech and RIR stages' training
+   shapes, ragged shapes and all-ties;
 3. the slice at full width: the joint localizer (sincos + radius, vectors
    flatten) and the frozen localizer (one-hot encodings, memory-order
    flatten) with seeded random weights serve a seeded batch on the card and
    on the CPU; launch counts show the serving run went through the kernel;
 4. timings on the card: median serve latency at B = 8 and B = 64, and the
-   kernel beside its bound, its plain version and a one-call library yardstick.
+   kernel beside its bound, its plain version and a one-call library yardstick;
+5. the codebook-accumulation kernel (codebook gradient and EMA statistics)
+   against its plain version on the card at the speech, RIR, ragged and
+   skewed shapes, and bitwise equal over two launches;
+6. the training slice at full width: train steps of the speech VQ-VAE
+   (gradient codebook at three seeds, EMA codebook at one) and of the RIR
+   VQ-VAE (three seeds) at B = 4 on the card and on the CPU from the same
+   seeded weights, batch and jitter decisions; codes, loss, metrics and the EMA
+   buffers agree, every card gradient lies within GRAD_RTOL of the same step in
+   float64, and a repeat of the card's step is bitwise equal; the gradients of
+   control steps (cuDNN's default algorithms, TF32) are printed beside it;
+   launch counts show the steps went through the kernels;
+7. timings on the card: median train step and frames/s at B = 32 for both
+   stages, a profiler breakdown of the speech step, yardstick steps with TF32
+   allowed (speech) and with cuDNN's default algorithms (both stages), and each
+   kernel at its speech shape beside its bound, its plain version and library
+   yardsticks.
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -24,6 +41,7 @@ Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -43,6 +61,21 @@ MAX_MISMATCH_SHARE = 1e-3
 ATOL = 1e-4
 SERVE_B = 64
 N_SERVE = SERVE_B * 201
+TRAIN_B = 32  # the stages' batch size
+CHECK_B = 4  # the card-vs-CPU step (the CPU side costs ~0.4 TFLOP at full width)
+SPEECH_N, SPEECH_D, SPEECH_K = TRAIN_B * 500, 128, 1024  # the speech stage's VQ rows
+RIR_N = TRAIN_B * 201  # the RIR stage's VQ rows, D = 64, K = 1024
+GRAD_SEEDS = (6, 60, 600)  # phase 6's gradient-mode steps; the EMA step uses the first
+LOSS_RTOL = 1e-4
+# Every gradient of the card's step must lie within GRAD_RTOL of its largest
+# entry from the same step in float64 on the CPU. Set from phase 6's readings
+# on the H100 (PERF.md): full-FP32 steps, on the card or on the CPU, read up
+# to 5.9e-3 (the speech stage's gradients are ill-conditioned), TF32 steps
+# 5.0e-2 to 0.17; 1e-2 passes the first and fails the second.
+GRAD_RTOL = 1e-2
+# of max(1, max |plain|), the plain version run in float64: the kernel sums
+# FP32 rows in its own fixed order
+ACCUM_RTOL = 1e-5
 
 
 def phase(n: int, msg: str) -> None:
@@ -128,8 +161,257 @@ def device_breakdown(serve, inputs, top: int = 6):
     return wall_us, busy_us, [(e.key, e.count, e.self_device_time_total) for e in on_card[:top]]
 
 
+def accum_bound(n: int, d: int, k: int, counts: bool):
+    """(bound ms, bound_by, ops, bytes) of one accumulation: each input read
+    once, each output written once; one add per input element."""
+    nbytes = 4 * (n * d + n + k * d + (k if counts else 0))
+    ops = n * d + (n if counts else 0)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def check_accum(vq, grad_cuda, stats_cuda, dev) -> float:
+    """Phase 5: both kernel modes against the plain versions, and two
+    launches bitwise equal. Returns the largest |kernel - plain|."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    report = []
+    cases = [(SPEECH_N, SPEECH_D, SPEECH_K, False), (RIR_N, 64, 1024, False), (100, 4, 16, False),
+             (513, 129, 100, False), (SPEECH_N, SPEECH_D, SPEECH_K, True)]
+    for n, d, k, skewed in cases:
+        x = torch.randn(n, d, generator=gen, device=dev)
+        if skewed:  # every row on one code
+            idx = torch.full((n,), k // 2, dtype=torch.int32, device=dev)
+        else:
+            idx = torch.randint(0, k, (n,), generator=gen, device=dev, dtype=torch.int32)
+        grad = grad_cuda(idx, x, k)
+        counts, sums = stats_cuda(idx, x, k)
+        want_counts, want_sums = vq.codebook_stats_plain(idx, x.double(), k)
+        want_grad = want_sums
+        same = torch.equal(grad, grad_cuda(idx, x, k))
+        again = stats_cuda(idx, x, k)
+        same = same and torch.equal(counts, again[0]) and torch.equal(sums, again[1])
+        torch.cuda.synchronize()
+        label = f"({n}, {d}, {k}{', skewed' if skewed else ''})"
+        for name, got, want in (("grad", grad, want_grad), ("sums", sums, want_sums)):
+            err = float((got - want).abs().max())
+            limit = ACCUM_RTOL * max(1.0, float(want.abs().max()))
+            if err > limit:
+                raise AssertionError(f"vq_codebook_accum {name} at {label}: max |kernel - plain| {err} > {limit}")
+            worst = max(worst, err)
+        if not torch.equal(counts, want_counts):
+            raise AssertionError(f"vq_codebook_stats counts at {label} differ from bincount")
+        if not same:
+            raise AssertionError(f"vq_codebook_accum at {label}: two launches differ")
+        report.append(f"{label} max err {float((grad - want_grad).abs().max()):.3g}")
+    idx = torch.randint(-3, 20, (5000,), generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn(5000, 8, generator=gen, device=dev)
+    keep = (idx >= 0) & (idx < 16)
+    want = vq.codebook_grad_plain(idx[keep], x[keep].double(), 16)
+    err = float((grad_cuda(idx, x, 16) - want).abs().max())
+    if err > ACCUM_RTOL * max(1.0, float(want.abs().max())):
+        raise AssertionError(f"indices outside [0, K) were not skipped: err {err}")
+    phase(5, f"vq_codebook_grad and vq_codebook_stats == plain (rule {ACCUM_RTOL} x max(1, max|plain|); "
+             f"counts exact) and deterministic at {'; '.join(report)}; indices outside [0, K) skipped")
+    return worst
+
+
+def latent_codebook_(model, x, g) -> None:
+    """Replace the codebook by K pre-VQ latent rows of ``x`` (an untrained
+    U(+-1/K) codebook makes the argmin a near-tie lottery)."""
+    import torch
+
+    with torch.no_grad():
+        z = model.pre_vq_latent(x)
+        rows = (z if model.compat_vq_flatten else z.transpose(1, 2)).reshape(-1, model.embedding_dim)
+        cb = rows[torch.randperm(rows.shape[0], generator=g)[: model.num_embeddings]]
+        model._vq._embedding.weight.copy_(cb)
+        if model._vq.ema:
+            model._vq.ema_sums.copy_(cb)
+
+
+def make_batch(b: int, g, device):
+    """A seeded batch of power spectrograms and targets at the dataset's
+    geometry (201 bins x 500 frames)."""
+    import torch
+    from acoustic_locating_vq_vae_torch.data import SampleBatch
+
+    spec = lambda: torch.empty(b, 201, 500, device=device).exponential_(generator=g)
+    return SampleBatch(
+        spec(), spec(), spec(), torch.full((b,), 16000, device=device), torch.zeros(b, device=device),
+        torch.empty(b, 201, device=device).exponential_(generator=g), torch.ones(b, device=device),
+    )
+
+
+@contextlib.contextmanager
+def card_precision(tf32: bool, deterministic: bool):
+    """Allow TF32 (cuDNN and cuBLAS) or not, and pin cuDNN to its deterministic
+    algorithms or not; the old settings come back on exit. ``Trainer.step``
+    runs at (False, True); the other settings are this script's controls and
+    yardsticks, not switches of the program."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+    cudnn.deterministic = deterministic
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
+
+
+# (tf32, deterministic) of the control steps beside the program's own step
+CONTROLS = {"repeat": (False, True), "default algorithms": (False, False),
+            "default algorithms, repeat": (False, False), "TF32": (True, True)}
+
+
+def control_grads(tr, task, batch, tf32: bool, deterministic: bool):
+    """Gradients of the trainer's next step (loss and backward, no update)
+    on a copy of its model, from its jitter state, under the given settings."""
+    import torch
+
+    model = copy.deepcopy(tr.model)
+    jitter = torch.Generator()
+    jitter.set_state(tr.jitter_generator.get_state())
+    with card_precision(tf32, deterministic):
+        task.loss(model, batch, True, jitter)[0].backward()
+    return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def train_step_card_vs_cpu(task, dev, counters, label: str, seed: int):
+    """Phase 6: one train step of ``task`` on the card and on the CPU from the
+    same seed, batch and jitter decisions, and the same step's gradients on
+    the CPU in float64 as the reference. Before the card's step, the control
+    steps of CONTROLS run on copies of its model. Checks codes, loss, metrics,
+    EMA buffers and that the repeat equals the step bitwise; returns the card
+    run's launches, per step and control (the worst gradient distance from
+    float64 over that gradient's largest entry, its name), which the caller
+    checks, and whether two steps with cuDNN's default algorithms were
+    bitwise equal."""
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    g = torch.Generator().manual_seed(seed)
+    data = make_batch(2 * CHECK_B, g, "cpu")
+    seed_batch = make_batch(8, g, "cpu")  # >= K = 1024 latent rows in both stages
+    trainers = {"cpu": Trainer(task, device="cpu", seed=seed + 1, verbose=False),
+                "card": Trainer(task, device=dev, seed=seed + 1, verbose=False)}
+    cpu_model = trainers["cpu"].model
+    with full_fp32():
+        latent_codebook_(cpu_model, task.model_inputs(seed_batch)[0], g)
+    trainers["card"].model.load_state_dict(cpu_model.state_dict())
+    ref_model = copy.deepcopy(cpu_model).double()
+    jitter_state = trainers["cpu"].jitter_generator.get_state()
+    runs = {}
+    for name, tr in trainers.items():
+        batch = tr.sample(tr.to_device(data))
+        if name == "cpu":
+            cpu_batch = batch
+        codebook = tr.model._vq._embedding.weight.detach().cpu().clone()
+        with torch.no_grad(), full_fp32():
+            x = task.model_inputs(batch)[0]
+            codes = tr.model.get_latent_codes(x).flatten().cpu()
+            z = tr.model.pre_vq_latent(x)
+            rows = (z if tr.model.compat_vq_flatten else z.transpose(1, 2)).reshape(-1, tr.model.embedding_dim).cpu()
+        if name == "card":
+            controls = {c: control_grads(tr, task, batch, *setting) for c, setting in CONTROLS.items()}
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+        metrics = tr.step(batch)
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+        grads = {k: p.grad.detach().cpu() for k, p in tr.model.named_parameters()}
+        buffers = {k: b.detach().cpu() for k, b in tr.model.named_buffers()}
+        runs[name] = (codes, rows, codebook, {k: float(v) for k, v in metrics.items()}, grads, buffers)
+    (c_cpu, rows_cpu, cb_cpu, m_cpu, g_cpu, b_cpu) = runs["cpu"]
+    (c_card, _, _, m_card, g_card, b_card) = runs["card"]
+    mism, gap = check_codes(rows_cpu, cb_cpu, c_card, c_cpu, f"{label} codes card vs CPU")
+
+    # the reference: the same step in float64 on the CPU
+    batch64 = cpu_batch.map(lambda a: a.double() if a.is_floating_point() else a)
+    with torch.no_grad():  # before the step moves an EMA codebook
+        codes64 = ref_model.get_latent_codes(task.model_inputs(batch64)[0]).flatten()
+    jitter = torch.Generator()
+    jitter.set_state(jitter_state)
+    loss64, _ = task.loss(ref_model, batch64, True, jitter)
+    loss64.backward()
+    check_codes(rows_cpu, cb_cpu, codes64, c_cpu, f"{label} codes float64 vs float32 CPU")
+    g64 = {k: p.grad.detach() for k, p in ref_model.named_parameters()}
+
+    for k, v in m_cpu.items():
+        if not math.isfinite(m_card[k]) or abs(m_card[k] - v) > LOSS_RTOL * abs(v):
+            raise AssertionError(f"{label}: {k} card {m_card[k]} vs CPU {v}, rtol {LOSS_RTOL}")
+    for k, v in b_cpu.items():
+        err = float((b_card[k] - v).abs().max())
+        if err > LOSS_RTOL * max(1.0, float(v.abs().max())):
+            raise AssertionError(f"{label}: EMA buffer {k} differs by {err}")
+    for k, v in controls["repeat"].items():
+        if not torch.equal(v, g_card[k]):
+            raise AssertionError(f"{label}: the gradient of {k} differs between two identical card steps")
+    default_same = all(torch.equal(v, controls["default algorithms, repeat"][k])
+                       for k, v in controls["default algorithms"].items())
+    steps = {"card": g_card, "float32 CPU": g_cpu, "default algorithms": controls["default algorithms"],
+             "TF32": controls["TF32"]}
+    worst = {}
+    for step, grads in steps.items():
+        worst[step] = max((float((grads[k].double() - ref).abs().max() / ref.abs().max()), k) for k, ref in g64.items())
+    phase(6, f"{label} train step at full width, B={CHECK_B}, seed {seed}: launches {launches}; codes differ on "
+             f"{mism} tie rows (gap {gap}); loss card {m_card['loss']} vs CPU {m_cpu['loss']} vs float64 "
+             f"{loss64.item()}; metrics within rtol {LOSS_RTOL}; {len(b_cpu)} EMA buffers agree; gradients "
+             f"bitwise equal over two card steps (with cuDNN's default algorithms "
+             f"{'equal' if default_same else 'not equal'}); worst distance from float64 over each of {len(g64)} "
+             f"gradients' max: " + ", ".join(f"{step} {v:.3g} ({k})" for step, (v, k) in worst.items()))
+    return launches, worst, default_same
+
+
+def step_times_ms(trainer, data, steps: int = 10, warmup: int = 3):
+    """Median host-clock time of one train step (sample + loss + backward +
+    Adam), synchronised before and after, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        trainer.step(trainer.sample(data))
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(trainer.sample(data))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def yardstick_step_ms(trainer, data, tf32: bool, deterministic: bool, steps: int = 10, warmup: int = 3) -> float:
+    """Median host-clock time of the trainer's step (sample + loss + backward
+    + Adam) under other settings than the program's (see card_precision)."""
+    import torch
+
+    model, opt, task = trainer.model, trainer.optimizer, trainer.task
+    times = []
+    for i in range(warmup + steps):
+        batch = trainer.sample(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with card_precision(tf32, deterministic):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = task.loss(model, batch, True, trainer.jitter_generator)
+            loss.backward()
+            opt.step()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -139,8 +421,10 @@ def main() -> int:
     from acoustic_locating_vq_vae_torch.dsp import znorm
     from acoustic_locating_vq_vae_torch.eval import full_fp32, make_serving_fn
     from acoustic_locating_vq_vae_torch.ops import kernels, vq
-    from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
-    from acoustic_locating_vq_vae_torch.train import JointLocationTask, LocationTask
+    from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
+    from acoustic_locating_vq_vae_torch.train import (
+        JointLocationTask, LocationTask, RirVQVAETask, SpeechVQVAETask, Trainer,
+    )
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -169,7 +453,8 @@ def main() -> int:
     max_err = 0.0
     report = []
     with full_fp32():
-        for n, d, k in [(N_SERVE, 64, 1024), (8 * 201, 64, 1024), (100, 4, 16), (513, 128, 100)]:
+        for n, d, k in [(N_SERVE, 64, 1024), (8 * 201, 64, 1024), (SPEECH_N, SPEECH_D, SPEECH_K),
+                        (RIR_N, 64, 1024), (100, 4, 16), (513, 128, 100)]:
             x = torch.randn(n, d, generator=gen, device=dev)
             cb = torch.randn(k, d, generator=gen, device=dev)
             e2 = (cb * cb).sum(1)
@@ -285,9 +570,7 @@ def main() -> int:
     cb = torch.randn(k, d, generator=gen, device=dev)
     e2 = (cb * cb).sum(1)
     with full_fp32():
-        launches_before = nearest_indices_cuda.launches
         kernel_ms = event_ms(lambda: nearest_indices_cuda(x, cb, e2))
-        nearest_indices_cuda.launches = launches_before
         plain_ms = event_ms(lambda: vq.nearest_indices(x, cb, e2))
         library_ms = event_ms(lambda: torch.addmm(e2, x, cb.T, alpha=-2).argmin(1))
     flops = 2 * n * k * d
@@ -297,20 +580,127 @@ def main() -> int:
     phase(4, f"vq_nearest at N={n}, D={d}, K={k}: kernel {kernel_ms:.5f} ms, bound {bound_ms:.5f} ms "
              f"({flops} FP32 ops, {nbytes} bytes), plain version {plain_ms:.5f} ms, "
              f"library addmm+argmin {library_ms:.5f} ms, all at TF32 off ({card})")
+    del outs, x, cb, e2
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: the codebook-accumulation kernel vs plain on the card
+    accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
+
+    # ---- phase 6: the training slice at full width, card vs CPU
+    counters = (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda)
+    train_launches = {}
+    grad_worst = {}
+    default_differs = 0
+    for label, task, seeds in (("speech", SpeechVQVAETask(), GRAD_SEEDS), ("rir", RirVQVAETask(), GRAD_SEEDS),
+                               ("speech EMA", SpeechVQVAETask(vq_ema=True), GRAD_SEEDS[:1])):
+        for seed in seeds:
+            got, worst, default_same = train_step_card_vs_cpu(task, dev, counters, label, seed)
+            default_differs += not default_same
+            needed = ("nearest_indices_cuda", "codebook_stats_cuda" if task.vq_ema else "codebook_grad_cuda")
+            for name in needed:
+                if got[name] < 1:
+                    raise AssertionError(f"{label} train step never launched {name}")
+            train_launches.setdefault(label, got)
+            for step, w in worst.items():
+                grad_worst.setdefault(label, {}).setdefault(step, []).append(w[0])
+            torch.cuda.empty_cache()
+    phase(6, f"worst gradient distance from float64 over each gradient's max, per stage and step over its "
+             f"seeds (limit {GRAD_RTOL} for the card's step): " + "; ".join(
+                 f"{label}: " + ", ".join(f"{step} {max(ws):.3g}" for step, ws in steps.items())
+                 for label, steps in grad_worst.items())
+             + f"; two steps with cuDNN's default algorithms differed in {default_differs} of "
+             f"{2 * len(GRAD_SEEDS) + 1} cases")
+    for label, steps in grad_worst.items():
+        if max(steps["card"]) > GRAD_RTOL:
+            raise AssertionError(f"{label}: a card gradient is {max(steps['card'])} of its max from float64, "
+                                 f"limit {GRAD_RTOL}")
+
+    # ---- phase 7: timings on the card
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    data = make_batch(2 * TRAIN_B, g7, dev)
+    step_ms = {}
+    for label, task in (("speech", SpeechVQVAETask()), ("rir", RirVQVAETask())):
+        trainer = Trainer(task, device=dev, seed=8, verbose=False)
+        torch.cuda.reset_peak_memory_stats()
+        med, times = step_times_ms(trainer, data)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms[label] = med
+        phase(7, f"{label} train step at B={TRAIN_B}, full width, TF32 off: median {med:.4f} ms over "
+                 f"{len(times)} steps (min {min(times):.4f}, max {max(times):.4f}), "
+                 f"{TRAIN_B * 500 / med * 1e3:.1f} frames/s, peak memory {peak_gb:.3f} GB ({card})")
+        if label == "speech":
+            wall_us, busy_us, top = device_breakdown(
+                lambda b: trainer.step(trainer.sample(b)), [data] * 3, top=8)
+            if busy_us == 0:
+                phase(7, "speech step: the profiler recorded no device time")
+            else:
+                tops = "; ".join(f"{kname[:70]} x{c} {t / 3 / 1e3:.3f} ms ({t / busy_us:.1%})" for kname, c, t in top)
+                phase(7, f"speech step profiled, per step: {wall_us / 3 / 1e3:.4f} ms host clock, card busy "
+                         f"{busy_us / 3 / 1e3:.4f} ms ({busy_us / wall_us:.1%}); kernels by device time: {tops}")
+            tf32 = yardstick_step_ms(trainer, data, tf32=True, deterministic=True)
+            phase(7, f"speech train step at B={TRAIN_B} with TF32 allowed (yardstick only): median {tf32:.4f} ms, "
+                     f"{TRAIN_B * 500 / tf32 * 1e3:.1f} frames/s, {med / tf32:.2f}x the FP32 step ({card})")
+        free = yardstick_step_ms(trainer, data, tf32=False, deterministic=False)
+        phase(7, f"{label} train step at B={TRAIN_B}, TF32 off, cuDNN's default algorithms (yardstick of the "
+                 f"deterministic pin): median {free:.4f} ms, the program's step {med / free:.3f}x as long ({card})")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # each kernel at its speech shape
+    n, d, k = SPEECH_N, SPEECH_D, SPEECH_K
+    x = torch.randn(n, d, generator=g7, device=dev)
+    cb = torch.randn(k, d, generator=g7, device=dev)
+    e2 = (cb * cb).sum(1)
+    idx = torch.randint(0, k, (n,), generator=g7, device=dev, dtype=torch.int32)
+    idx64 = idx.long()
+    x1 = torch.cat([x, torch.ones(n, 1, device=dev)], 1)
+    with full_fp32():
+        near_speech = (event_ms(lambda: nearest_indices_cuda(x, cb, e2)),
+                       event_ms(lambda: vq.nearest_indices(x, cb, e2)),
+                       event_ms(lambda: torch.addmm(e2, x, cb.T, alpha=-2).argmin(1)))
+        accum = {}
+        for name, fn, plain, counts in (
+            ("vq_codebook_grad", lambda: codebook_grad_cuda(idx, x, k), lambda: vq.codebook_grad_plain(idx, x, k), False),
+            ("vq_codebook_stats", lambda: codebook_stats_cuda(idx, x, k), lambda: vq.codebook_stats_plain(idx, x, k), True),
+        ):
+            lib = event_ms(lambda: torch.zeros(k, d, device=dev).index_add_(0, idx64, x))
+            gemm = event_ms(lambda: F.one_hot(idx64, k).float().T @ (x1 if counts else x))
+            bnd, by, ops, nb = accum_bound(n, d, k, counts)
+            accum[name] = dict(ms=event_ms(fn), plain_ms=event_ms(plain), library_ms=lib, bound_ms=bnd, bound_by=by)
+            per_step = train_launches["speech EMA" if counts else "speech"][
+                "codebook_stats_cuda" if counts else "codebook_grad_cuda"]
+            phase(7, f"{name} at N={n}, D={d}, K={k}: kernel {accum[name]['ms']:.5f} ms, bound {bnd:.5f} ms "
+                     f"({nb} bytes, {ops} adds), {per_step} launch(es) per train step, plain version "
+                     f"{accum[name]['plain_ms']:.5f} ms, library index_add_ {lib:.5f} ms"
+                     f"{' (sums only)' if counts else ''}, one-hot GEMM {gemm:.5f} ms ({card})")
+    near_flops = 2 * n * k * d
+    near_bound = max(near_flops / PEAK_FP32_FLOPS, 4 * (n * d + k * d + k + n) / PEAK_HBM_BYTES) * 1e3
+    phase(7, f"vq_nearest at the speech shape N={n}, D={d}, K={k}: kernel {near_speech[0]:.5f} ms, bound "
+             f"{near_bound:.5f} ms ({near_flops} FP32 ops), {train_launches['speech']['nearest_indices_cuda']} "
+             f"launch(es) per train step, plain version {near_speech[1]:.5f} ms, library addmm+argmin "
+             f"{near_speech[2]:.5f} ms ({card})")
+
+    def accum_entry(name, source_line, label, counter):
+        return {"name": name, "route": "cuda",
+                "source": "src/acoustic_locating_vq_vae_torch/csrc/vq_codebook_accum.cu",
+                "replaces": f"src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:{source_line}",
+                "launches": train_launches[label][counter], "max_abs_err": accum_err, **accum[name]}
 
     print(json.dumps({"kernels": [{
         "name": "vq_nearest",
         "route": "cuda",
         "source": "src/acoustic_locating_vq_vae_torch/csrc/vq_nearest.cu",
         "replaces": "src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:49",
-        "launches": sum(launches.values()),
+        "launches": sum(launches.values()) + sum(t["nearest_indices_cuda"] for t in train_launches.values()),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
-    }]}), flush=True)
+    }, accum_entry("vq_codebook_grad", 68, "speech", "codebook_grad_cuda"),
+        accum_entry("vq_codebook_stats", 150, "speech EMA", "codebook_stats_cuda"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -6,22 +6,29 @@ never ``jax`` nor the JAX package. The TPU's Pallas kernels become kernels
 written by hand for Hopper (``csrc/``, built with ``nvcc`` for ``sm_90a`` at
 first use).
 
-This slice holds the localizers' serving path: the joint localizer and the
-frozen localizer, from an echoed power spectrogram to (angle, radius,
-coordinates), with the nearest-codebook assignment as a CUDA kernel.
+It holds the localizers' serving path (the joint and the frozen localizer,
+from an echoed power spectrogram to angle, radius and coordinates) and the
+training path of the two single-VQ-VAE stages (speech and RIR: resident
+dataset, sampled batch, loss, backward, Adam). The nearest-codebook
+assignment, the codebook gradient and the EMA codebook statistics are CUDA
+kernels.
 
 Subpackages
 -----------
-data    dataset geometry (DatasetConfig)
+data    DatasetConfig, SampleBatch, SpecsDataset, batch sampling
 dsp     znorm, source_coordinates
-ops     Conv1d, Dense, residual stacks, vector quantizer, the CUDA kernel's wrapper and build
-models  ConvolutionalVQVAE (encode half), LocationModule, JointLocationModel
-train   LocationTask, JointLocationTask (inference part)
+ops     Conv1d, ConvTranspose1d, Dense, residual stacks, jitter, vector
+        quantizer, the CUDA kernels' wrappers and build
+models  ConvolutionalVQVAE (encoder, quantizer, decoder), LocationModule,
+        JointLocationModel
+train   Task, SpeechVQVAETask, RirVQVAETask, Trainer, TrainHistory;
+        LocationTask, JointLocationTask (inference part)
 eval    weights from the JAX package's parameter trees, the serving closure
+utils   device rules (full_fp32, resolve_device)
 """
 
 __version__ = "0.1.0"
 
-from . import data, dsp, eval, models, ops, train
+from . import data, dsp, eval, models, ops, train, utils
 
-__all__ = ["data", "dsp", "eval", "models", "ops", "train", "__version__"]
+__all__ = ["data", "dsp", "eval", "models", "ops", "train", "utils", "__version__"]

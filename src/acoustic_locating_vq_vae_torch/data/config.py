@@ -1,9 +1,9 @@
-"""Dataset configuration: the geometry and spectrogram sizes the serving path
-reads.
+"""Dataset configuration: the geometry and spectrogram sizes.
 
-The port's own copy of ``acoustic_locating_vq_vae_tpu/data/config.py:16-34``
+The port's own copy of ``acoustic_locating_vq_vae_tpu/data/config.py:16-80``
 (the port imports nothing of the JAX package). Same fields and defaults as the
-reference's ``dataset_config.npy`` dict (genereate_dataset.py:55-63,78-88).
+reference's ``dataset_config.npy`` dict (genereate_dataset.py:55-63,78-88),
+and the same reader of that dict.
 """
 
 from __future__ import annotations
@@ -32,3 +32,24 @@ class DatasetConfig:
     @property
     def num_freq(self) -> int:
         return self.NFFT // 2 + 1  # 201
+
+    @classmethod
+    def from_reference_dict(cls, d: dict) -> "DatasetConfig":
+        """The config of a ``dataset_config.npy`` dict; the framework extras
+        (``num_frames``, ``audio_samples``, ``c``) are read where present."""
+        extras = {}
+        for key, cast in (("num_frames", int), ("audio_samples", int), ("c", float)):
+            if key in d:
+                extras[key] = cast(d[key])
+        return cls(
+            fs=int(d["fs"]),
+            receiver_position=tuple(d["receiver_position"]),
+            room_dimensions=tuple(d["room_dimensions"]),
+            reverberation_time=float(d["reverberation_time"]),
+            n_sample=int(d["n_sample"]),
+            R=float(d["R"]),
+            NFFT=int(d["NFFT"]),
+            HOP_LENGTH=int(d["HOP_LENGTH"]),
+            Z_LOC_SOURCE=float(d["Z_LOC_SOURCE"]),
+            **extras,
+        )

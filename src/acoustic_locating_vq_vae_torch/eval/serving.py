@@ -9,7 +9,6 @@ the port's state dicts (see ``eval/weights.py:params_from_jax``).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -18,37 +17,11 @@ import torch
 from ..data.config import DatasetConfig
 from ..dsp.specs import source_coordinates
 from ..train.tasks import JointLocationTask, LocationTask
+from ..utils.device import full_fp32, resolve_device
 
 __all__ = ["make_serving_fn", "full_fp32", "resolve_device"]
 
 StateDict = Mapping[str, Union[torch.Tensor, np.ndarray]]
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """Run float32 convolutions and matrix products in full float32.
-
-    cuDNN runs float32 convolutions in TF32 by default. The pre-VQ latent
-    decides the argmin, and reduced-precision products flip near-tie codes
-    (the JAX package's ops/vq.py:57-60), so serving keeps TF32 off for both
-    cuDNN and cuBLAS. The previous settings come back on exit."""
-    cudnn = torch.backends.cudnn
-    matmul = torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = False
-    matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` as a torch.device; raises if it is CUDA and no card is present."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} was requested but torch.cuda.is_available() is False")
-    return device
 
 
 def _load(build: Callable[[], torch.nn.Module], params: StateDict, device: torch.device) -> torch.nn.Module:

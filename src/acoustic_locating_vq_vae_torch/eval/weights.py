@@ -7,10 +7,17 @@ as nested dicts of arrays (numpy, or anything ``np.asarray`` takes); nothing
 of JAX is imported. Layout changes:
 
   * flax conv kernel (k, in, out) -> torch conv weight (out, in, k);
+  * the JAX stride-1 transposed conv, a plain conv with its own kernel
+    (k, in, out) -> torch ConvTranspose1d weight (in, out, k), flipped along
+    k (``torch_export.py:41-44`` ``_t_transposed``);
   * flax dense kernel (in, out) -> torch linear weight (out, in);
   * the tied residual block is copied to every layer index, as the
     reference's shared-instance ModuleList stores it;
-  * the codebook comes from ``_vq/codebook``.
+  * the codebook comes from ``_vq/codebook``, or for an EMA model from its
+    ``vq_stats`` collection, with the EMA counts and sums.
+
+The maps are linear, so a gradient tree of the same structure comes across
+the same way.
 """
 
 from __future__ import annotations
@@ -31,9 +38,10 @@ def _key(prefix: str, name: str) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
-def _conv(tree, name: str, out: Dict[str, torch.Tensor]) -> None:
+def _conv(tree, name: str, out: Dict[str, torch.Tensor], transposed: bool = False) -> None:
     sub = tree["Conv_0"]
-    out[f"{name}.weight"] = _tensor(np.asarray(sub["kernel"]).transpose(2, 1, 0))
+    kernel = np.asarray(sub["kernel"])
+    out[f"{name}.weight"] = _tensor(kernel[::-1].transpose(1, 2, 0) if transposed else kernel.transpose(2, 1, 0))
     if "bias" in sub:
         out[f"{name}.bias"] = _tensor(sub["bias"])
 
@@ -55,11 +63,27 @@ def _encoder(tree, prefix: str, num_layers: int, out: Dict[str, torch.Tensor]) -
     _stack(tree["residual_stack"], _key(prefix, "_residual_stack"), num_layers, out)
 
 
-def _vqvae(tree, prefix: str, num_layers: int, out: Dict[str, torch.Tensor]) -> None:
-    """Encode half only: a decoder in the tree is not read."""
+def _decoder(tree, prefix: str, num_layers: int, out: Dict[str, torch.Tensor]) -> None:
+    _conv(tree["conv_1"], _key(prefix, "_conv_1"), out)
+    _stack(tree["residual_stack"], _key(prefix, "_residual_stack"), num_layers, out)
+    for i in (1, 2, 3):
+        _conv(tree[f"conv_trans_{i}"], _key(prefix, f"_conv_trans_{i}"), out, transposed=True)
+
+
+def _vqvae(tree, prefix: str, num_layers: int, out: Dict[str, torch.Tensor], vq_stats=None, decoder: bool = True) -> None:
+    """Encoder, pre-VQ conv, codebook and, when the tree has one and
+    ``decoder`` is true, the decoder."""
     _encoder(tree["_encoder"], _key(prefix, "_encoder"), num_layers, out)
     _conv(tree["_pre_vq_conv"], _key(prefix, "_pre_vq_conv"), out)
-    out[_key(prefix, "_vq._embedding.weight")] = _tensor(tree["_vq"]["codebook"])
+    if vq_stats is not None:
+        stats = vq_stats["_vq"]
+        out[_key(prefix, "_vq._embedding.weight")] = _tensor(stats["codebook"])
+        out[_key(prefix, "_vq.ema_counts")] = _tensor(stats["ema_counts"])
+        out[_key(prefix, "_vq.ema_sums")] = _tensor(stats["ema_sums"])
+    else:
+        out[_key(prefix, "_vq._embedding.weight")] = _tensor(tree["_vq"]["codebook"])
+    if decoder and "_decoder" in tree:
+        _decoder(tree["_decoder"], _key(prefix, "_decoder"), num_layers, out)
 
 
 def _location(tree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
@@ -69,32 +93,38 @@ def _location(tree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
         out[_key(prefix, f"fc_{i}.bias")] = _tensor(sub["bias"])
 
 
-def params_from_jax(tree: Any, num_residual_layers: int = 2) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Any, num_residual_layers: int = 2, vq_stats: Any = None) -> Dict[str, torch.Tensor]:
     """The port's state dict for a flax ``params`` tree of the JAX package.
 
     The tree's top-level names say which model it is:
 
     * ``rir_model`` and ``head``: ``JointLocationModel``;
     * ``rir_model`` alone (an ``EchoedSpeechReconModel`` composite): its RIR
-      branch as a ``ConvolutionalVQVAE``, for the frozen localizer; the
-      speech branch and the decoders are not read;
-    * ``_encoder``: ``ConvolutionalVQVAE`` (encode half);
+      branch as an encode-only ``ConvolutionalVQVAE``, for the frozen
+      localizer; the speech branch and the decoders are not read;
+    * ``_encoder``: ``ConvolutionalVQVAE``, with its decoder when the tree
+      has one;
     * ``fc_1``: ``LocationModule``;
+    * ``conv_trans_1``: ``DeconvolutionalDecoder``;
     * ``conv_1`` and ``residual_stack``: ``ConvolutionalEncoder``.
 
     ``num_residual_layers`` is the stack depth the tied block is copied to
-    (2 in both localizers' RIR branch).
+    (2 in both localizers' RIR branch and the RIR stage, 3 in the speech
+    stage). ``vq_stats`` is an EMA model's ``vq_stats`` collection (its
+    codebook lives there, not in ``params``).
     """
     out: Dict[str, torch.Tensor] = {}
     if "rir_model" in tree and "head" in tree:
         _vqvae(tree["rir_model"], "rir_model", num_residual_layers, out)
         _location(tree["head"], "head", out)
     elif "rir_model" in tree:
-        _vqvae(tree["rir_model"], "", num_residual_layers, out)
+        _vqvae(tree["rir_model"], "", num_residual_layers, out, decoder=False)
     elif "_encoder" in tree:
-        _vqvae(tree, "", num_residual_layers, out)
+        _vqvae(tree, "", num_residual_layers, out, vq_stats)
     elif "fc_1" in tree:
         _location(tree, "", out)
+    elif "conv_trans_1" in tree:
+        _decoder(tree, "", num_residual_layers, out)
     elif "conv_1" in tree and "residual_stack" in tree:
         _encoder(tree, "", num_residual_layers, out)
     else:

@@ -1,6 +1,7 @@
-"""Model layer: the VQ-VAE's encode half and the location regressors."""
+"""Model layer: the VQ-VAE with its encoder and decoder, and the location
+regressors."""
 
-from .conv_vqvae import ConvolutionalEncoder, ConvolutionalVQVAE
+from .conv_vqvae import ConvolutionalEncoder, ConvolutionalVQVAE, DeconvolutionalDecoder
 from .location import JointLocationModel, LocationModule
 
-__all__ = ["ConvolutionalEncoder", "ConvolutionalVQVAE", "JointLocationModel", "LocationModule"]
+__all__ = ["ConvolutionalEncoder", "ConvolutionalVQVAE", "DeconvolutionalDecoder", "JointLocationModel", "LocationModule"]

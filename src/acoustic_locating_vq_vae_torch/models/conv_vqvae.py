@@ -1,15 +1,14 @@
-"""ConvolutionalVQVAE, encode half, and its encoder.
+"""ConvolutionalVQVAE and its encoder and decoder halves.
 
 Counterpart of ``acoustic_locating_vq_vae_tpu/models/conv_vqvae.py`` (reference:
-vq_vae/convolutional_vq_vae.py:18-105, convolutional_encoder.py:7-44). Only the
-encode half is ported: encoder, pre-VQ conv and quantizer, which is all the
-localizers run. The decoder, ``ConvTranspose1d`` and ``Jitter`` come with the
-training slice.
+vq_vae/convolutional_vq_vae.py:18-105, convolutional_encoder.py:7-44,
+deconvolutional_decoder.py:7-79). The bf16 ``compute_dtype`` and sequence
+sharding are not ported yet.
 
 Layout is channels-first ``(B, C, L)`` throughout, the public layout of both
 packages; module attributes carry the reference's state-dict keys
 (``_encoder._conv_1.weight``, ``_pre_vq_conv.weight``,
-``_vq._embedding.weight``, ...).
+``_vq._embedding.weight``, ``_decoder._conv_trans_1.weight``, ...).
 """
 
 from __future__ import annotations
@@ -20,11 +19,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import Conv1d
+from ..ops.conv import Conv1d, ConvTranspose1d
+from ..ops.jitter import Jitter
 from ..ops.residual import ResidualStack
 from ..ops.vq import VectorQuantizer, VQOutput
 
-__all__ = ["ConvolutionalEncoder", "ConvolutionalVQVAE"]
+__all__ = ["ConvolutionalEncoder", "DeconvolutionalDecoder", "ConvolutionalVQVAE"]
 
 
 class ConvolutionalEncoder(nn.Module):
@@ -59,14 +59,58 @@ class ConvolutionalEncoder(nn.Module):
         return out + (F.relu(x1) if self.skip_relu else x1)
 
 
+class DeconvolutionalDecoder(nn.Module):
+    """[Jitter] -> Conv3 -> ResidualStack -> 2 x (ConvT3 + ReLU) -> ConvT3
+    (deconvolutional_decoder.py:62-79): ``(B, D, L) -> (B, C_out, L)``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        num_hiddens: int,
+        num_residual_layers: int,
+        num_residual_hiddens: int,
+        use_jitter: bool = True,
+        jitter_probability: float = 0.25,
+        tied: bool = True,
+        compat_init: bool = True,
+        compat_inplace_relu: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self._jitter = Jitter(jitter_probability) if use_jitter else None
+        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator)
+        self._residual_stack = ResidualStack(
+            num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
+            compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
+        )
+        self._conv_trans_1 = ConvTranspose1d(num_hiddens, num_hiddens, generator=generator)
+        self._conv_trans_2 = ConvTranspose1d(num_hiddens, num_hiddens, generator=generator)
+        self._conv_trans_3 = ConvTranspose1d(num_hiddens, out_channels, generator=generator)
+
+    def forward(
+        self, x: torch.Tensor, train: bool = True, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        if self._jitter is not None:
+            x = self._jitter(x, train=train, generator=generator)
+        x = self._residual_stack(self._conv_1(x))
+        x = F.relu(self._conv_trans_1(x))
+        x = F.relu(self._conv_trans_2(x))
+        return self._conv_trans_3(x)
+
+
 class ConvolutionalVQVAE(nn.Module):
-    """Encoder -> pre-VQ conv -> VQ (convolutional_vq_vae.py:93-97).
+    """Encoder -> pre-VQ conv -> [mean-pool] -> VQ -> decoder
+    (convolutional_vq_vae.py:93-100).
 
     ``compat_vq_flatten=True`` is the reference's memory-order flatten
     (vector_quantizer.py:32): the quantizer reshapes the channels-first
     ``(B, D, L)`` latent to ``(-1, D)`` without permuting, so each row is D
     consecutive samples along time. ``False`` quantizes proper channel vectors
-    (the latent permuted to ``(B, L, D)`` first). Both give B*L rows."""
+    (the latent permuted to ``(B, L, D)`` first). Both give B*L rows.
+
+    ``decoder=False`` builds the encode half only (the localizers' RIR
+    branch)."""
 
     def __init__(
         self,
@@ -81,42 +125,77 @@ class ConvolutionalVQVAE(nn.Module):
         compat_init: bool = True,
         compat_inplace_relu: bool = True,
         compat_vq_flatten: bool = True,
+        use_jitter: bool = True,
+        jitter_probability: float = 0.25,
+        out_channels: Optional[int] = None,
+        encoder_average_pooling: bool = False,
+        vq_ema: bool = False,
+        vq_ema_decay: float = 0.99,
+        vq_ema_reset: float = 0.0,
+        decoder: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.num_embeddings = num_embeddings
         self.compat_vq_flatten = compat_vq_flatten
+        self.encoder_average_pooling = encoder_average_pooling
         self._encoder = ConvolutionalEncoder(
             in_channels, num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
             compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
         )
         self._pre_vq_conv = Conv1d(num_hiddens, embedding_dim, 3, padding=1, generator=generator)
-        self._vq = VectorQuantizer(num_embeddings, embedding_dim, commitment_cost, generator=generator)
+        self._vq = VectorQuantizer(
+            num_embeddings, embedding_dim, commitment_cost, generator=generator,
+            ema=vq_ema, ema_decay=vq_ema_decay, ema_reset_threshold=vq_ema_reset,
+        )
+        # The localizers run only the encode half: their RIR branch has no
+        # decoder, as flax creates no parameters for an uncalled submodule.
+        self._decoder = None if not decoder else DeconvolutionalDecoder(
+            embedding_dim, out_channels if out_channels is not None else in_channels, num_hiddens,
+            num_residual_layers, num_residual_hiddens, use_jitter=use_jitter,
+            jitter_probability=jitter_probability, tied=tied, compat_init=compat_init,
+            compat_inplace_relu=compat_inplace_relu, generator=generator,
+        )
 
     def pre_vq_latent(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, C, L) -> (B, D, L)``: the latent the quantizer reads."""
         return self._pre_vq_conv(self._encoder(x))
 
-    def _encode(self, x: torch.Tensor, need_encodings: bool = False) -> VQOutput:
+    def _encode(self, x: torch.Tensor, train_vq: bool, need_encodings: bool = False) -> VQOutput:
         """VQ output whose ``quantized`` is channels-first ``(B, D, L)``."""
         z = self.pre_vq_latent(x)
+        if self.encoder_average_pooling:
+            z = torch.mean(z, dim=2, keepdim=True)  # over time (convolutional_vq_vae.py:96-97)
         if self.compat_vq_flatten:
             # the quantizer's reshape(-1, D) of the contiguous (B, D, L) latent
             # is the reference's view(-1, D)
-            return self._vq(z, need_encodings=need_encodings)
-        out = self._vq(z.transpose(1, 2), need_encodings=need_encodings)
+            return self._vq(z.contiguous(), train_vq=train_vq, need_encodings=need_encodings)
+        out = self._vq(z.transpose(1, 2), train_vq=train_vq, need_encodings=need_encodings)
         return out._replace(quantized=out.quantized.transpose(1, 2))
+
+    def forward(
+        self, x: torch.Tensor, train: bool = True, train_vq: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """``(vq_loss, recon (B, C_out, L), perplexity)`` for ``x`` (B, C, L).
+        ``train`` gates the decoder's jitter, whose decisions come from
+        ``generator``; an EMA codebook updates when ``train_vq`` is true and
+        the module is in training mode."""
+        out = self._encode(x, train_vq)
+        recon = self._decoder(out.quantized, train=train, generator=generator)
+        return out.loss, recon, out.perplexity
 
     def get_latent_representation(self, x: torch.Tensor, need_encodings: bool = True):
         """(loss, quantized (B, D, L), perplexity, encodings (B*L, K) or None),
-        the reference return layout (convolutional_vq_vae.py:102-105)."""
-        out = self._encode(x, need_encodings=need_encodings)
+        the reference return layout (convolutional_vq_vae.py:102-105), with
+        the codebook frozen."""
+        out = self._encode(x, train_vq=False, need_encodings=need_encodings)
         return out.loss, out.quantized, out.perplexity, out.encodings
 
     def get_latent_codes(self, x: torch.Tensor) -> torch.Tensor:
-        """VQ code ids, ``(B, rows_per_sample)``."""
-        return self._encode(x).indices.reshape(x.shape[0], -1)
+        """VQ code ids, ``(B, rows_per_sample)``, with the codebook frozen."""
+        return self._encode(x, train_vq=False).indices.reshape(x.shape[0], -1)
 
     def codes_to_latent(self, codes: torch.Tensor) -> torch.Tensor:
         """Inverse of :meth:`get_latent_codes`: ``(B, R)`` ids -> quantized

@@ -5,8 +5,13 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/ops/conv.py`` (``Conv1d``,
 own channels-first ``(B, C, L)``, which is also the public layout of both
 packages. Parameters are named ``weight`` / ``bias`` with torch's shapes
 (conv ``(out, in, k)``, dense ``(out, in)``) so the modules carry the
-reference's state-dict keys. ``ConvTranspose1d`` belongs to the decoder and
-is not ported yet.
+reference's state-dict keys.
+
+``ConvTranspose1d`` is a real transposed convolution with torch's weight
+layout ``(in, out, k)``. The JAX package implements the stride-1 transposed
+conv as a plain conv with its own kernel ``(k, in, out)``; the two are the same
+function when the port's weight is that kernel flipped along k with in and
+out swapped (JAX ``eval/torch_export.py:41-44``, ``eval/weights.py`` here).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from torch import nn
 
 from .initializers import kaiming_uniform_relu_, torch_default_
 
-__all__ = ["Conv1d", "Dense"]
+__all__ = ["Conv1d", "ConvTranspose1d", "Dense"]
 
 
 class Conv1d(nn.Module):
@@ -54,6 +59,35 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(x, self.weight, self.bias, padding=self.padding)
+
+
+class ConvTranspose1d(nn.Module):
+    """Stride-1 transposed convolution ``(B, C_in, L) -> (B, C_out, L)``,
+    weight ``(in, out, k)`` (deconvolutional_decoder.py:36-61).
+
+    Init draws from the JAX module's distribution, whose kernel is that of a
+    plain conv: kaiming-uniform weight and torch-default bias, both with
+    ``fan_in = k * in_channels``. (torch's own ConvTranspose1d takes its fan-in
+    from ``out * k``, which is not the JAX package's.)"""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int = 3,
+        padding: int = 1,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.padding = padding
+        fan_in = kernel_size * in_channels
+        self.weight = nn.Parameter(
+            kaiming_uniform_relu_(torch.empty(in_channels, out_channels, kernel_size), fan_in, generator)
+        )
+        self.bias = nn.Parameter(torch_default_(torch.empty(out_channels), fan_in, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose1d(x, self.weight, self.bias, padding=self.padding)
 
 
 class Dense(nn.Module):

@@ -1,13 +1,19 @@
-"""Wrapper of the hand-written nearest-codebook kernel (``csrc/vq_nearest.cu``).
+"""Wrappers of the hand-written vector-quantizer kernels.
 
-Counterpart of the Pallas ``_fwd_kernel`` / ``_fwd_impl`` in
-``acoustic_locating_vq_vae_tpu/ops/vq_pallas.py``. The kernel returns only the
-int32 code ids; ``ops/vq.py`` adds the row norms before the call and the row
-gather after it, as ``_fwd_impl`` does around its ``pallas_call``. The plain
-PyTorch version of the same function is ``ops.vq.nearest_indices``.
+* ``nearest_indices_cuda`` (``csrc/vq_nearest.cu``): counterpart of the
+  Pallas ``_fwd_kernel`` / ``_fwd_impl`` in
+  ``acoustic_locating_vq_vae_tpu/ops/vq_pallas.py``. The kernel returns only
+  the int32 code ids; ``ops/vq.py`` adds the row norms before the call and the
+  row gather after it, as ``_fwd_impl`` does around its ``pallas_call``. Plain
+  version: ``ops.vq.nearest_indices``.
+* ``codebook_grad_cuda`` and ``codebook_stats_cuda``
+  (``csrc/vq_codebook_accum.cu``): counterparts of the Pallas ``_bwd_kernel``
+  as ``_dcb_impl`` (the codebook gradient) and ``codebook_stats_pallas`` (the
+  EMA counts and sums) drive it. Plain versions: ``ops.vq.codebook_grad`` and
+  ``ops.vq.codebook_stats`` on CPU tensors.
 
-``nearest_indices_cuda.launches`` counts the kernel's launches, so a run can
-show that its main path went through the kernel.
+Each wrapper's ``.launches`` counts its kernel's launches, so a run can show
+that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 
 from .kernels import library
 
-__all__ = ["nearest_indices_cuda"]
+__all__ = ["nearest_indices_cuda", "codebook_grad_cuda", "codebook_stats_cuda"]
 
 
 @functools.cache
@@ -30,6 +36,18 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _accum_launcher():
+    lib = library("vq_codebook_accum.cu")
+    scratch = lib.vq_codebook_accum_scratch_floats
+    scratch.argtypes = [ctypes.c_int] * 4
+    scratch.restype = ctypes.c_longlong
+    fn = lib.vq_codebook_accum_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return scratch, fn
 
 
 def _check(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tensor) -> None:
@@ -77,3 +95,69 @@ def nearest_indices_cuda(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch
 
 
 nearest_indices_cuda.launches = 0
+
+
+def _check_accum(idx: torch.Tensor, g: torch.Tensor, k: int) -> None:
+    for name, t in (("idx", idx), ("g", g)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if idx.device != g.device:
+        raise ValueError(f"idx is on {idx.device}, g on {g.device}")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"idx must be int32, got {idx.dtype}")
+    if g.dtype != torch.float32:
+        raise ValueError(f"g must be float32, got {g.dtype}")
+    if idx.dim() != 1 or g.dim() != 2 or g.shape[0] != idx.shape[0]:
+        raise ValueError(f"need idx (N,) and g (N, D), got {tuple(idx.shape)}, {tuple(g.shape)}")
+    n, d = g.shape
+    if n < 1 or k < 1 or d < 1:
+        raise ValueError(f"need N, K, D >= 1, got N={n}, K={k}, D={d}")
+    if n >= 2**31 or k * d >= 2**31:
+        raise ValueError("N and K * D must fit in int32")
+
+
+def _accumulate(idx: torch.Tensor, g: torch.Tensor, k: int, with_counts: bool):
+    n, d = g.shape
+    out = torch.empty(k, d, dtype=torch.float32, device=g.device)
+    counts = torch.empty(k, dtype=torch.float32, device=g.device) if with_counts else None
+    with torch.cuda.device(g.device):
+        scratch_floats, launch = _accum_launcher()
+        size = scratch_floats(n, k, d, int(with_counts))
+        scratch = torch.empty(size, dtype=torch.float32, device=g.device) if size else None
+        err = launch(
+            idx.data_ptr(), g.data_ptr(), out.data_ptr(),
+            counts.data_ptr() if with_counts else None,
+            scratch.data_ptr() if scratch is not None else None,
+            n, k, d, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"vq_codebook_accum kernel launch failed with CUDA error {err}")
+    return out, counts
+
+
+def codebook_grad_cuda(idx: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """``out[c] = sum of g[n] over rows with idx[n] == c``, ``(K, D)`` float32:
+    the codebook gradient ``one_hot(idx)^T @ g``. Indices outside ``[0, K)``
+    add nothing. Deterministic; launches on the current stream."""
+    _check_accum(idx, g, k)
+    out, _ = _accumulate(idx, g, k, with_counts=False)
+    codebook_grad_cuda.launches += 1
+    return out
+
+
+codebook_grad_cuda.launches = 0
+
+
+def codebook_stats_cuda(idx: torch.Tensor, x: torch.Tensor, k: int):
+    """Per-code usage counts ``(K,)`` float32 and row sums ``(K, D)`` in one
+    launch: the EMA codebook's statistics. Indices outside ``[0, K)`` add
+    nothing. Deterministic; launches on the current stream."""
+    _check_accum(idx, x, k)
+    sums, counts = _accumulate(idx, x, k, with_counts=True)
+    codebook_stats_cuda.launches += 1
+    return counts, sums
+
+
+codebook_stats_cuda.launches = 0

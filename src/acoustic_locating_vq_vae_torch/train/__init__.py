@@ -1,5 +1,9 @@
-"""Stage task specs (inference part of the two localizer tasks)."""
+"""Stage task specs and the single-VQ-VAE training loop."""
 
-from .tasks import JointLocationTask, LocationTask
+from .loop import Trainer, TrainHistory
+from .tasks import JointLocationTask, LocationTask, RirVQVAETask, SpeechVQVAETask, Task
 
-__all__ = ["JointLocationTask", "LocationTask"]
+__all__ = [
+    "JointLocationTask", "LocationTask", "RirVQVAETask", "SpeechVQVAETask", "Task",
+    "Trainer", "TrainHistory",
+]

@@ -1,22 +1,25 @@
 """The port's hand-written kernels on the card, against their plain PyTorch
-versions. These need a CUDA card and skip without one; this file imports no
-JAX, so it also runs where JAX is absent:
+versions. The ``cuda`` tests need a CUDA card and skip without one; the
+others check, on the CPU, that the wrappers and entry points refuse to work
+without a card. This file imports no JAX, so it also runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
 (``--noconftest``: the suite's conftest configures JAX.) ``chip_smoke.py``
 holds the same kernels at full width."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
-from acoustic_locating_vq_vae_torch.data import DatasetConfig
+from acoustic_locating_vq_vae_torch.data import DatasetConfig, SampleBatch
 from acoustic_locating_vq_vae_torch.dsp import znorm
 from acoustic_locating_vq_vae_torch.eval import full_fp32, make_serving_fn
 from acoustic_locating_vq_vae_torch.ops import vq
-from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
-from acoustic_locating_vq_vae_torch.train import JointLocationTask, LocationTask
+from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
+from acoustic_locating_vq_vae_torch.train import JointLocationTask, LocationTask, SpeechVQVAETask, Trainer
 
 SHAPES = [(512, 128, 1024), (100, 4, 16), (1000, 64, 1024), (513, 128, 100), (12864, 64, 1024)]
 
@@ -102,3 +105,112 @@ def test_serving_on_card_matches_cpu(card, frozen):
     for a, b in zip(got, want):
         assert a.is_cuda
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+# the shapes of chip_smoke.py phase 5: speech, RIR, ragged, D not a multiple of 32
+ACCUM_SHAPES = [(16000, 128, 1024), (6432, 64, 1024), (100, 4, 16), (513, 129, 100)]
+
+
+def _accum_inputs(n, d, k, card, skewed=False):
+    g = torch.Generator().manual_seed(n + d + k)
+    x = torch.randn(n, d, generator=g).to(card)
+    idx = torch.full((n,), 3, dtype=torch.int32) if skewed else torch.randint(0, k, (n,), generator=g, dtype=torch.int32)
+    return idx.to(card), x
+
+
+def _close(got, want):
+    """max |kernel - plain| <= 1e-5 * max(1, max |plain|): the kernel sums
+    FP32 rows per code in its own order."""
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,skewed", [s + (False,) for s in ACCUM_SHAPES] + [(16000, 128, 1024, True)],
+                         ids=[f"{n}x{d}x{k}" for n, d, k in ACCUM_SHAPES] + ["skewed"])
+def test_codebook_accum_matches_plain_and_is_deterministic(card, n, d, k, skewed):
+    idx, x = _accum_inputs(n, d, k, card, skewed)
+    grad = codebook_grad_cuda(idx, x, k)
+    counts, sums = codebook_stats_cuda(idx, x, k)
+    # the plain version in float64: its FP32 index_add_ on the card sums by
+    # atomics in no fixed order, which alone moves a skewed sum by ~1e-5
+    want_counts, want_sums = vq.codebook_stats_plain(idx, x.double(), k)
+    _close(grad, want_sums)
+    _close(sums, want_sums)
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(grad, codebook_grad_cuda(idx, x, k))
+    again = codebook_stats_cuda(idx, x, k)
+    assert torch.equal(counts, again[0]) and torch.equal(sums, again[1])
+
+
+@pytest.mark.cuda
+def test_codebook_accum_skips_indices_out_of_range(card):
+    idx = torch.randint(-3, 20, (5000,), dtype=torch.int32).to(card)
+    x = torch.randn(5000, 8).to(card)
+    keep = (idx >= 0) & (idx < 16)
+    _close(codebook_grad_cuda(idx, x, 16), vq.codebook_grad_plain(idx[keep], x[keep].double(), 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ema", [False, True], ids=["gradient", "ema"])
+def test_train_step_on_card_matches_cpu(card, ema):
+    """One speech train step at width 1/16 on the card and on the CPU from
+    the same seed, batch and jitter decisions: the same loss and EMA
+    buffers, every card gradient within 1e-3 of its largest entry from the
+    same step in float64, and the card's launches went through the kernels."""
+    task = SpeechVQVAETask(width_scale=1 / 16, batch_size=2, vq_ema=ema)
+    g = torch.Generator().manual_seed(0)
+    spec = torch.empty(2, 201, 64).exponential_(generator=g)
+    batch = SampleBatch(spec, spec, spec, torch.zeros(2), torch.zeros(2), torch.zeros(2, 201), torch.ones(2))
+    model = task.build_model(torch.Generator().manual_seed(1))
+    (x,) = task.model_inputs(batch)
+    with torch.no_grad():
+        rows = model.pre_vq_latent(x).reshape(-1, model.embedding_dim)
+    cb = rows[torch.randperm(rows.shape[0], generator=g)[: model.num_embeddings]]
+    runs = {}
+    for dev in ("cpu", card):
+        trainer = Trainer(task, device=dev, seed=1, verbose=False)
+        with torch.no_grad():
+            trainer.model._vq._embedding.weight.copy_(cb)
+            if ema:
+                trainer.model._vq.ema_sums.copy_(cb)
+        if dev == "cpu":
+            ref = copy.deepcopy(trainer.model).double()
+            jitter = torch.Generator()
+            jitter.set_state(trainer.jitter_generator.get_state())
+        counter = codebook_stats_cuda if ema else codebook_grad_cuda
+        before = counter.launches
+        metrics = trainer.step(trainer.sample(trainer.to_device(batch)))
+        if dev == card:
+            assert counter.launches == before + 1
+        grads = {k: p.grad.cpu() for k, p in trainer.model.named_parameters()}
+        runs[str(dev)] = (metrics, grads, {k: b.cpu() for k, b in trainer.model.named_buffers()})
+    loss64, _ = task.loss(ref, batch.map(lambda a: a.double()), True, jitter)
+    loss64.backward()
+    (m_cpu, _, b_cpu), (m_gpu, g_gpu, b_gpu) = runs["cpu"], runs[str(card)]
+    torch.testing.assert_close(m_gpu["loss"].cpu(), m_cpu["loss"], rtol=1e-4, atol=0)
+    for key, p in ref.named_parameters():
+        assert float((g_gpu[key].double() - p.grad).abs().max()) <= 1e-3 * float(p.grad.abs().max()), key
+    for key, v in b_cpu.items():  # the latents differ by conv rounding
+        assert float((b_gpu[key] - v).abs().max()) <= 1e-4 * max(1.0, float(v.abs().max())), key
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers never compute on the CPU: they raise and count
+    no launch."""
+    idx = torch.zeros(10, dtype=torch.int32)
+    x = torch.randn(10, 4)
+    counts = (nearest_indices_cuda.launches, codebook_grad_cuda.launches, codebook_stats_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        codebook_grad_cuda(idx, x, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        codebook_stats_cuda(idx, x, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        nearest_indices_cuda(x, x[:6], (x[:6] ** 2).sum(1))
+    assert counts == (nearest_indices_cuda.launches, codebook_grad_cuda.launches, codebook_stats_cuda.launches)
+
+
+def test_trainer_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(SpeechVQVAETask(width_scale=1 / 32))

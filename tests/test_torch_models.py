@@ -1,5 +1,5 @@
-"""The port's conv stacks, encoder, ConvolutionalVQVAE encode half and
-location head against the JAX package, with the JAX weights carried across
+"""The port's conv stacks, encoder, transposed conv, decoder,
+ConvolutionalVQVAE and location head against the JAX package, with the JAX weights carried across
 by ``params_from_jax`` and the same numpy inputs (CPU, RIR-branch geometry at
 width 1/16).
 
@@ -19,9 +19,10 @@ from acoustic_locating_vq_vae_torch.eval import params_from_jax
 from acoustic_locating_vq_vae_torch.models import (
     ConvolutionalEncoder,
     ConvolutionalVQVAE,
+    DeconvolutionalDecoder,
     LocationModule,
 )
-from acoustic_locating_vq_vae_torch.ops import ResidualStack
+from acoustic_locating_vq_vae_torch.ops import ConvTranspose1d, ResidualStack
 from acoustic_locating_vq_vae_torch.ops.initializers import kaiming_uniform_relu_, torch_default_
 
 # the RIR branch at width_scale 1/16: 500 frames as channels, length 201
@@ -76,8 +77,10 @@ def _rir_pair(compat_vq_flatten):
         use_jitter=False, out_channels=1, compat_vq_flatten=compat_vq_flatten,
     )
     p = _np(jm.init(jax.random.PRNGKey(2), jnp.asarray(_x(1, C_IN, L, 2)))["params"])
-    tm = ConvolutionalVQVAE(C_IN, H, D, 2, RH, 0.25, K, compat_vq_flatten=compat_vq_flatten)
-    tm.load_state_dict(params_from_jax(p))  # the decoder in p is not read
+    tm = ConvolutionalVQVAE(
+        C_IN, H, D, 2, RH, 0.25, K, compat_vq_flatten=compat_vq_flatten, use_jitter=False, out_channels=1,
+    )
+    tm.load_state_dict(params_from_jax(p))
     with torch.no_grad():
         z = tm.pre_vq_latent(torch.from_numpy(_x(2, C_IN, L, 3)))
         rows = (z if compat_vq_flatten else z.transpose(1, 2)).reshape(-1, D).numpy()
@@ -146,3 +149,91 @@ def test_initializers_draw_from_the_generator():
     assert float(a.abs().max()) <= (6.0 / 96) ** 0.5
     d = torch_default_(torch.empty(1000), 100, torch.Generator().manual_seed(0))
     assert float(d.abs().max()) <= 0.1 and float(d.abs().max()) > 0.09
+
+
+def test_conv_transpose_matches_jax():
+    """The port's real transposed conv with weight = JAX kernel flipped
+    along k, in/out swapped equals the JAX stride-1 ConvTranspose1d; init
+    draws kaiming-uniform with fan_in = 3 * in_channels."""
+    x = _x(2, 12, 30, 7)
+    jct = jops.ConvTranspose1d(9)
+    xl = jnp.asarray(x.transpose(0, 2, 1))
+    p = _np(jct.init(jax.random.PRNGKey(5), xl)["params"])
+    want = np.asarray(jct.apply({"params": p}, xl)).transpose(0, 2, 1)
+    ct = ConvTranspose1d(12, 9, generator=torch.Generator().manual_seed(0))
+    assert ct.weight.shape == (12, 9, 3)
+    w_max, b_max = float(ct.weight.detach().abs().max()), float(ct.bias.detach().abs().max())
+    assert 0.35 < w_max <= (6.0 / 36) ** 0.5 and b_max <= 36 ** -0.5
+    kernel = p["Conv_0"]["kernel"]  # (k, in, out)
+    ct.load_state_dict({"weight": torch.from_numpy(np.ascontiguousarray(kernel[::-1].transpose(1, 2, 0))),
+                        "bias": torch.from_numpy(np.array(p["Conv_0"]["bias"]))})
+    np.testing.assert_allclose(ct(torch.from_numpy(x)).detach().numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_decoder_matches_jax(tied):
+    """The decoder (jitter off at train=False) through params_from_jax of a
+    bare ``_decoder`` tree, and its input gradient."""
+    x = _x(2, D, 40, 8)
+    jdec = jmodels.DeconvolutionalDecoder(out_channels=7, num_hiddens=16, num_residual_layers=3,
+                                          num_residual_hiddens=8, tied=tied)
+    xl = jnp.asarray(x.transpose(0, 2, 1))
+    p = _np(jdec.init({"params": jax.random.PRNGKey(6), "jitter": jax.random.PRNGKey(7)}, xl)["params"])
+    f = lambda v: jdec.apply({"params": p}, v, train=False)
+    want = np.asarray(f(xl)).transpose(0, 2, 1)
+    want_grad = np.asarray(jax.grad(lambda v: jnp.sum(f(v) ** 2))(xl)).transpose(0, 2, 1)
+
+    dec = DeconvolutionalDecoder(D, 7, 16, 3, 8, tied=tied)
+    sd = params_from_jax(p, num_residual_layers=3)
+    assert set(sd) == set(dec.state_dict())
+    dec.load_state_dict(sd)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = dec(xt, train=False)
+    (out**2).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), want_grad, rtol=RTOL, atol=ATOL)
+
+
+def test_params_from_jax_carries_an_ema_model():
+    """An EMA model's codebook, counts and sums come from its vq_stats; the
+    codebook is a buffer, so no optimizer sees it."""
+    jm = jmodels.ConvolutionalVQVAE(
+        in_channels=C_IN, num_hiddens=H, embedding_dim=D, num_residual_layers=2,
+        num_residual_hiddens=RH, commitment_cost=0.25, num_embeddings=K,
+        use_jitter=False, out_channels=1, vq_ema=True,
+    )
+    v = _np(jm.init(jax.random.PRNGKey(9), jnp.asarray(_x(1, C_IN, L, 9))))
+    tm = ConvolutionalVQVAE(C_IN, H, D, 2, RH, 0.25, K, use_jitter=False, out_channels=1, vq_ema=True)
+    sd = params_from_jax(v["params"], vq_stats=v["vq_stats"])
+    assert set(sd) == set(tm.state_dict())
+    tm.load_state_dict(sd)
+    np.testing.assert_array_equal(tm._vq.ema_sums.numpy(), v["vq_stats"]["_vq"]["ema_sums"])
+    np.testing.assert_array_equal(tm._vq._embedding.weight.numpy(), v["vq_stats"]["_vq"]["codebook"])
+    assert "_vq._embedding.weight" not in dict(tm.named_parameters())
+    dec_t = sd["_decoder._conv_trans_3.weight"]
+    kernel = v["params"]["_decoder"]["conv_trans_3"]["Conv_0"]["kernel"]
+    np.testing.assert_array_equal(dec_t.numpy(), kernel[::-1].transpose(1, 2, 0))
+
+
+@pytest.mark.parametrize("pooling", [False, True], ids=["per_step", "average_pooling"])
+def test_vqvae_forward_matches_jax(pooling):
+    """The whole VQ-VAE at train=False (no jitter), with and without the
+    encoder's mean over time: loss, reconstruction and perplexity."""
+    jm = jmodels.ConvolutionalVQVAE(
+        in_channels=12, num_hiddens=16, embedding_dim=D, num_residual_layers=2, num_residual_hiddens=8,
+        commitment_cost=0.25, num_embeddings=8, encoder_average_pooling=pooling,
+    )
+    x = _x(3, 12, 20, 10)
+    rngs = {"params": jax.random.PRNGKey(11), "jitter": jax.random.PRNGKey(12)}
+    p = _np(jm.init(rngs, jnp.asarray(x))["params"])
+    p["_vq"]["codebook"] = np.random.default_rng(13).standard_normal((8, D)).astype(np.float32)
+    loss_j, recon_j, perp_j = jm.apply({"params": p}, jnp.asarray(x), train=False)
+
+    tm = ConvolutionalVQVAE(12, 16, D, 2, 8, 0.25, 8, encoder_average_pooling=pooling)
+    tm.load_state_dict(params_from_jax(p))
+    with torch.no_grad():
+        loss, recon, perp = tm(torch.from_numpy(x), train=False)
+    assert recon.shape == ((3, 12, 1) if pooling else (3, 12, 20))
+    np.testing.assert_allclose(recon.numpy(), np.asarray(recon_j), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=RTOL)
+    np.testing.assert_allclose(perp.item(), float(perp_j), rtol=RTOL)

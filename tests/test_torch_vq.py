@@ -1,15 +1,17 @@
-"""The port's vector-quantizer assignment and VectorQuantizer forward against
-the JAX package, on the same inputs made with numpy (CPU). The CUDA kernel
-against its plain version is in test_torch_kernels.py."""
+"""The port's vector quantizer against the JAX package, on the same inputs
+made with numpy (CPU): the assignment, the frozen forward, the codebook
+gradient, the EMA statistics and the gradient and EMA modes of the module.
+The CUDA kernels against their plain versions are in test_torch_kernels.py."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from acoustic_locating_vq_vae_tpu import ops as jops
-from acoustic_locating_vq_vae_tpu.ops.vq_pallas import nearest_codebook_pallas
+from acoustic_locating_vq_vae_tpu.ops.vq_pallas import codebook_stats_pallas, nearest_codebook_pallas
 from acoustic_locating_vq_vae_torch.ops import vq
 from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
 
@@ -93,3 +95,118 @@ def test_assign_raises_off_cpu_and_cuda():
     x = torch.empty(4, 2, device="meta")
     with pytest.raises(ValueError, match="meta"):
         vq.assign(x, torch.empty(3, 2, device="meta"))
+
+
+# ---------------------------------------------------------------- training paths
+
+GRAD_SHAPES = [(300, 8, 32), (513, 128, 100)]
+
+
+@pytest.mark.parametrize("n,d,k", GRAD_SHAPES)
+def test_codebook_gradient_matches_jax(n, d, k):
+    """The plain accumulation and the autograd path through ``assign``
+    against jax.grad through the xla and the Pallas (interpret) assignment,
+    rtol 1e-4 / atol 1e-5 (test_vq_pallas.py:34-49); the input gradient
+    through the assignment is exactly zero."""
+    x, cb = _inputs(n, d, k, seed=1)
+
+    def loss(fn):
+        return lambda cb_: jnp.sum(jnp.sin(fn(jnp.asarray(x), cb_)[1]) * fn(jnp.asarray(x), cb_)[1])
+
+    want = {name: np.asarray(jax.grad(loss(fn))(jnp.asarray(cb)))
+            for name, fn in (("xla", jops.nearest_codebook), ("pallas", nearest_codebook_pallas))}
+
+    xt = torch.from_numpy(x).requires_grad_()
+    cbt = torch.from_numpy(cb).requires_grad_()
+    idx, q = vq.assign(xt, cbt)
+    (torch.sin(q) * q).sum().backward()
+    plain = vq.codebook_grad_plain(idx, (torch.sin(q) + q * torch.cos(q)).detach(), k)
+    for name, w in want.items():
+        np.testing.assert_allclose(cbt.grad.numpy(), w, rtol=1e-4, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(plain.numpy(), w, rtol=1e-4, atol=1e-5, err_msg=name)
+    assert float(xt.grad.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n,d,k", GRAD_SHAPES)
+def test_codebook_stats_match_pallas(n, d, k):
+    """Counts exact, sums rtol 1e-5 against codebook_stats_pallas."""
+    x, _ = _inputs(n, d, k, seed=2)
+    idx = np.random.default_rng(3).integers(0, k, n).astype(np.int32)
+    counts_j, sums_j = codebook_stats_pallas(jnp.asarray(idx), jnp.asarray(x), k)
+    counts, sums = vq.codebook_stats(torch.from_numpy(idx), torch.from_numpy(x), k)
+    assert counts.dtype == torch.float32
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_j))
+    np.testing.assert_allclose(sums.numpy(), np.asarray(sums_j), rtol=1e-5, atol=1e-6)
+
+
+def _vq_inputs(seed=4):
+    rng = np.random.default_rng(seed)
+    k, d = 32, 8
+    x = rng.standard_normal((3, 40, d)).astype(np.float32)
+    cb = x.reshape(-1, d)[rng.choice(120, k, replace=False)] + 0.1 * rng.standard_normal((k, d)).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    return k, d, x, np.ascontiguousarray(cb), w
+
+
+def test_vq_gradient_mode_matches_jax():
+    """train_vq=True: loss, straight-through output, and the gradients of
+    ``loss + sum(w * quantized)`` in the codebook and in the inputs."""
+    k, d, x, cb, w = _vq_inputs()
+    jvq = jops.VectorQuantizer(num_embeddings=k, embedding_dim=d, commitment_cost=0.25)
+
+    def f(cb_, x_):
+        out = jvq.apply({"params": {"codebook": cb_}}, x_, train_vq=True)
+        return out.loss + jnp.sum(jnp.asarray(w) * out.quantized), out
+
+    (_, out_j), (g_cb, g_x) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(jnp.asarray(cb), jnp.asarray(x))
+
+    tvq = vq.VectorQuantizer(k, d, 0.25)
+    tvq.load_state_dict({"_embedding.weight": torch.from_numpy(cb)})
+    xt = torch.from_numpy(x).requires_grad_()
+    out = tvq(xt)
+    (out.loss + (torch.from_numpy(w) * out.quantized).sum()).backward()
+    np.testing.assert_allclose(out.loss.item(), float(out_j.loss), rtol=1e-5)
+    np.testing.assert_allclose(out.quantized.detach().numpy(), np.asarray(out_j.quantized), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tvq._embedding.weight.grad.numpy(), np.asarray(g_cb), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_x), rtol=1e-4, atol=1e-5)
+
+    # frozen: the same loss value and no codebook gradient
+    tvq.zero_grad()
+    frozen = tvq(torch.from_numpy(x).requires_grad_(), train_vq=False)
+    np.testing.assert_allclose(frozen.loss.item(), out.loss.item(), rtol=1e-6)
+    (frozen.loss + frozen.quantized.sum()).backward()
+    assert tvq._embedding.weight.grad is None
+
+
+@pytest.mark.parametrize("reset", [0.0, 1.0], ids=["no_reset", "reset"])
+def test_vq_ema_mode_matches_jax(reset):
+    """EMA mode on a training step: loss (commitment only), straight-through
+    output and the updated codebook, counts and sums; with a reset threshold
+    some codes restart from batch rows. No update in eval mode or with
+    train_vq=False."""
+    k, d, x, cb, _ = _vq_inputs(5)
+    counts0 = np.random.default_rng(6).uniform(0.2, 3.0, k).astype(np.float32)
+    sums0 = cb * counts0[:, None]
+    jvq = jops.VectorQuantizer(num_embeddings=k, embedding_dim=d, commitment_cost=0.25, ema=True,
+                               ema_reset_threshold=reset)
+    stats = {"codebook": cb, "ema_counts": counts0, "ema_sums": sums0}
+    out_j, mutated = jvq.apply({"vq_stats": stats}, jnp.asarray(x), train_vq=True, mutable=["vq_stats"])
+    new = jax.tree_util.tree_map(np.asarray, mutated["vq_stats"])
+    if reset:
+        assert (counts0 * 0.99 < reset).any()
+
+    tvq = vq.VectorQuantizer(k, d, 0.25, ema=True, ema_reset_threshold=reset)
+    tvq.load_state_dict({"_embedding.weight": torch.from_numpy(cb), "ema_counts": torch.from_numpy(counts0),
+                         "ema_sums": torch.from_numpy(sums0)})
+    assert list(tvq.parameters()) == []
+    tvq.eval()
+    tvq(torch.from_numpy(x))
+    tvq.train()
+    tvq(torch.from_numpy(x), train_vq=False)
+    np.testing.assert_array_equal(tvq._embedding.weight.numpy(), cb)
+    out = tvq(torch.from_numpy(x))
+    np.testing.assert_allclose(out.loss.item(), float(out_j.loss), rtol=1e-5)
+    np.testing.assert_allclose(out.quantized.numpy(), np.asarray(out_j.quantized), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tvq.ema_counts.numpy(), new["ema_counts"], rtol=1e-6)
+    np.testing.assert_allclose(tvq.ema_sums.numpy(), new["ema_sums"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tvq._embedding.weight.numpy(), new["codebook"], rtol=1e-5, atol=1e-6)
