@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card and check it against itself.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1, 2 and 5 and the kernels' timings only
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
 nothing of JAX. Phases, one line each (more for detail):
 
 1. device and build: the card's name and power limit (nvidia-smi), and the
-   build of every kernel, one nvcc per source, all started together;
+   build of every kernel, one nvcc per source, all started together, with
+   ptxas's registers, shared memory and spills per kernel;
 2. kernel vs plain on the card: the nearest-codebook kernel against the plain
    PyTorch version at the serving shapes, the speech and RIR stages' training
-   shapes, ragged shapes and all-ties;
+   shapes and the shapes that reach each branch of the kernel (the codebook
+   split over a cluster at N = 1,608, K off and below a code tile, D = 4,
+   6, 129 and 256), two launches equal; exactly on duplicated codebook rows,
+   +0.0 against -0.0 scores, a row of NaN and all ties;
 3. the slice at full width: the joint localizer (sincos + radius, vectors
    flatten) and the frozen localizer (one-hot encodings, memory-order
    flatten) with seeded random weights serve a seeded batch on the card and
    on the CPU; launch counts show the serving run went through the kernel;
-4. timings on the card: median serve latency at B = 8 and B = 64, and the
-   kernel beside its bound, its plain version and a one-call library yardstick;
+4. timings on the card: median serve latency at B = 8 and B = 64, the floor
+   of one empty launch, and the kernel at N = 1,608 and 12,864 beside its
+   bound, its plain version and a one-call library yardstick;
 5. the codebook-accumulation kernel (codebook gradient and EMA statistics)
    against its plain version on the card at the speech, RIR, ragged and
-   skewed shapes, and bitwise equal over two launches;
+   skewed shapes (one code and 32 codes in use, D = 4, 30 and 129, several
+   scan rounds), and bitwise equal over two launches;
 6. the training slice at full width: train steps of the speech VQ-VAE
    (gradient codebook at three seeds, EMA codebook at one) and of the RIR
    VQ-VAE (three seeds) at B = 4 on the card and on the CPU from the same
@@ -32,8 +39,15 @@ nothing of JAX. Phases, one line each (more for detail):
 7. timings on the card: median train step and frames/s at B = 32 for both
    stages, a profiler breakdown of the speech step, yardstick steps with TF32
    allowed (speech) and with cuDNN's default algorithms (both stages), and each
-   kernel at its speech shape beside its bound, its plain version and library
-   yardsticks.
+   kernel at the speech and RIR shapes (the accumulation also with 32 codes
+   and one code in use, and with a cold L2) beside its bound, its plain
+   version and library yardsticks.
+
+A kernel's time is read twice: on the card (some tens of calls captured in one
+CUDA graph and replayed between two events, so no host work lies between the
+launches) and as the enqueue time (two events around back-to-back Python
+calls, which for a call of tens of microseconds is the host's launch rate).
+The ``kernels`` line carries the card's time.
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -76,6 +90,10 @@ GRAD_RTOL = 1e-2
 # of max(1, max |plain|), the plain version run in float64: the kernel sums
 # FP32 rows in its own fixed order
 ACCUM_RTOL = 1e-5
+# `python3 chip_smoke.py --kernels` runs only what needs no model: the build,
+# the kernels against their plain versions (phases 2 and 5) and their timings
+# (of phases 4 and 7); a short run for working on a kernel
+KERNELS_ONLY = "--kernels"
 
 
 def phase(n: int, msg: str) -> None:
@@ -105,6 +123,8 @@ def check_codes(x, codebook, got, want, label: str):
 
 
 def event_ms(fn, iters: int = 50) -> float:
+    """Enqueue time: two events around back-to-back Python calls. For a call
+    of tens of microseconds this reads the host's launch rate, not the card."""
     import torch
 
     for _ in range(5):
@@ -117,6 +137,65 @@ def event_ms(fn, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, calls: int = 24, replays: int = 20) -> float:
+    """The card's own time of one call: ``calls`` calls captured in one CUDA
+    graph (no host work between the launches), the replays timed with events.
+    ``fns`` is one callable or a list that the calls cycle through (distinct
+    inputs that together exceed the L2 cache give a cold-cache reading)."""
+    import torch
+
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    if not hasattr(graph_ms, "stream"):
+        graph_ms.stream = torch.cuda.Stream()  # one for every capture: cuBLAS keeps a workspace per stream
+    side = graph_ms.stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture needs
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def profiled_ms(fn, calls: int = 24) -> float:
+    """The card's own time of one call that cannot be captured in a graph
+    (``torch.bincount`` reads its maximum back to the host): the profiler's
+    device time of every kernel of ``calls`` calls, summed, over the calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return busy_us / calls / 1e3
+
+
+def both_ms(fn, capturable: bool = True):
+    """(device ms, enqueue ms) of one call of ``fn``."""
+    return (graph_ms(fn) if capturable else profiled_ms(fn)), event_ms(fn)
 
 
 def serve_latency_ms(serve, inputs) -> float:
@@ -170,6 +249,213 @@ def accum_bound(n: int, d: int, k: int, counts: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
+def nearest_bound(n: int, d: int, k: int):
+    """(bound ms, bound_by, FP32 ops, bytes) of one nearest-codebook call."""
+    flops = 2 * n * k * d
+    nbytes = 4 * (n * d + k * d + k) + 4 * n
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def fmt_ms(pair) -> str:
+    return f"{pair[0]:.5f} ms on the card ({pair[1]:.5f} enqueue)"
+
+
+def time_nearest(ph: int, n: int, d: int, k: int, gen, card: str) -> dict:
+    """vq_nearest, its plain version and addmm + argmin at one shape: device
+    time (CUDA graph) and enqueue time (event loop), TF32 off."""
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.ops import vq
+    from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
+
+    x = torch.randn(n, d, generator=gen, device=gen.device)
+    cb = torch.randn(k, d, generator=gen, device=gen.device)
+    e2 = (cb * cb).sum(1)
+    with full_fp32():
+        kern = both_ms(lambda: nearest_indices_cuda(x, cb, e2))
+        plain = both_ms(lambda: vq.nearest_indices(x, cb, e2))
+        lib = both_ms(lambda: torch.addmm(e2, x, cb.T, alpha=-2).argmin(1))
+    bound, by, flops, nbytes = nearest_bound(n, d, k)
+    phase(ph, f"vq_nearest at N={n}, D={d}, K={k}: kernel {fmt_ms(kern)}; bound {bound:.5f} ms "
+              f"({flops} FP32 ops, {nbytes} bytes); plain version {fmt_ms(plain)}; library addmm+argmin "
+              f"{fmt_ms(lib)}; TF32 off ({card})")
+    return dict(ms=kern[0], plain_ms=plain[0], bound_ms=bound, bound_by=by, library_ms=lib[0])
+
+
+def accum_indices(kind: str, n: int, k: int, gen):
+    """int32 code ids: ``uniform`` over K, ``32 codes`` in use, or ``one code``."""
+    import torch
+
+    if kind == "uniform":
+        return torch.randint(0, k, (n,), generator=gen, device=gen.device, dtype=torch.int32)
+    if kind == "32 codes":
+        used = torch.randperm(k, generator=gen, device=gen.device)[:32].to(torch.int32)
+        return used[torch.randint(0, 32, (n,), generator=gen, device=gen.device)]
+    return torch.full((n,), k // 2, dtype=torch.int32, device=gen.device)
+
+
+def time_accum(ph: int, n: int, d: int, k: int, kind: str, gen, card: str, extras: bool = False) -> dict:
+    """Both modes of the accumulation kernel, their plain versions and one
+    ``index_add_`` on ``kind`` indices: device and enqueue time. With
+    ``extras`` also the one-hot GEMM and cold-cache readings (eight input
+    sets in turn, 66 MB at the speech shape against 50 MB of L2)."""
+    import torch
+    import torch.nn.functional as F
+    from acoustic_locating_vq_vae_torch.ops import vq
+    from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda
+
+    dev = gen.device
+    x = torch.randn(n, d, generator=gen, device=dev)
+    idx = accum_indices(kind, n, k, gen)
+    idx64 = idx.long()
+    out = {}
+    lib = both_ms(lambda: torch.zeros(k, d, device=dev).index_add_(0, idx64, x))
+    for name, fn, plain, counts in (
+        ("vq_codebook_grad", lambda: codebook_grad_cuda(idx, x, k), lambda: vq.codebook_grad_plain(idx, x, k), False),
+        ("vq_codebook_stats", lambda: codebook_stats_cuda(idx, x, k), lambda: vq.codebook_stats_plain(idx, x, k), True),
+    ):
+        kern = both_ms(fn)
+        # bincount reads its maximum back to the host, which a graph cannot capture
+        pl = both_ms(plain, capturable=not counts)
+        bnd, by, ops, nb = accum_bound(n, d, k, counts)
+        out[name] = dict(ms=kern[0], plain_ms=pl[0], library_ms=lib[0], bound_ms=bnd, bound_by=by)
+        phase(ph, f"{name} at N={n}, D={d}, K={k}, {kind} indices: kernel {fmt_ms(kern)}; bound {bnd:.5f} ms "
+                  f"({nb} bytes, {ops} adds); plain version {fmt_ms(pl)}"
+                  f"{' (profiler sum: bincount is not capturable)' if counts else ''}; library index_add_ "
+                  f"{fmt_ms(lib)}{' (sums only)' if counts else ''} ({card})")
+    if extras:
+        x1 = torch.cat([x, torch.ones(n, 1, device=dev)], 1)
+        gemm = both_ms(lambda: F.one_hot(idx64, k).float().T @ x), both_ms(lambda: F.one_hot(idx64, k).float().T @ x1)
+        sets = [(torch.randn(n, d, generator=gen, device=dev), accum_indices(kind, n, k, gen)) for _ in range(8)]
+        cold = {
+            "vq_codebook_grad": graph_ms([lambda s=s: codebook_grad_cuda(s[1], s[0], k) for s in sets]),
+            "vq_codebook_stats": graph_ms([lambda s=s: codebook_stats_cuda(s[1], s[0], k) for s in sets]),
+            "index_add_": graph_ms([lambda s=s, i=s[1].long(): torch.zeros(k, d, device=dev).index_add_(0, i, s[0])
+                                    for s in sets]),
+        }
+        phase(ph, f"the same over eight input sets in turn (cold L2), on the card: "
+                  + ", ".join(f"{name} {t:.5f} ms" for name, t in cold.items())
+                  + f"; one-hot GEMM {fmt_ms(gemm[0])}, on [x | 1] {fmt_ms(gemm[1])} ({card})")
+    return out
+
+
+def launch_floor(ph: int, card: str):
+    """One launch of a kernel that does nothing: the card's floor for a launch."""
+    import ctypes
+
+    import torch
+    from acoustic_locating_vq_vae_torch.ops import kernels
+
+    noop = kernels.library("vq_nearest.cu").vq_noop_launch
+    noop.argtypes, noop.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def fn():
+        if noop(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the empty kernel did not launch")
+
+    floor = both_ms(fn)
+    phase(ph, f"launch floor, an empty <<<1, 32>>> kernel: {fmt_ms(floor)} ({card})")
+    return floor
+
+
+def time_serving_kernels(dev, card: str) -> dict:
+    """Phase 4's kernel timings: vq_nearest at the serving shapes."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    launch_floor(4, card)
+    time_nearest(4, 8 * 201, 64, 1024, gen, card)
+    return time_nearest(4, N_SERVE, 64, 1024, gen, card)
+
+
+def time_training_kernels(dev, card: str):
+    """Phase 7's kernel timings: every kernel at the speech and RIR stages'
+    training shapes, the accumulation also on skewed indices."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    time_nearest(7, RIR_N, 64, 1024, gen, card)
+    near = time_nearest(7, SPEECH_N, SPEECH_D, SPEECH_K, gen, card)
+    accum = time_accum(7, SPEECH_N, SPEECH_D, SPEECH_K, "uniform", gen, card, extras=True)
+    for kind in ("32 codes", "one code"):
+        time_accum(7, SPEECH_N, SPEECH_D, SPEECH_K, kind, gen, card)
+    time_accum(7, RIR_N, 64, 1024, "uniform", gen, card)
+    return near, accum
+
+
+def check_nearest(vq, nearest_cuda, dev) -> float:
+    """Phase 2: vq_nearest against its plain version under the tie rule at
+    the paths' shapes and at the shapes that reach each branch of the kernel
+    (split codebook, K below and off a code tile, unaligned D, D above the
+    resident x tile), and exactly where the answer is known: duplicated
+    codebook rows, +-0.0 scores, NaN rows, all ties; two launches equal.
+    Returns the largest float64 score gap on rows that differ."""
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
+    report = []
+    with full_fp32():
+        for n, d, k in [(N_SERVE, 64, 1024), (8 * 201, 64, 1024), (SPEECH_N, SPEECH_D, SPEECH_K),
+                        (RIR_N, 64, 1024), (100, 4, 16), (513, 128, 100), (8 * 201, 64, 100), (8 * 201, 64, 16),
+                        (1000, 129, 300), (300, 6, 1024), (2000, 256, 520)]:
+            x = torch.randn(n, d, generator=gen, device=dev)
+            cb = torch.randn(k, d, generator=gen, device=dev)
+            e2 = (cb * cb).sum(1)
+            first = nearest_cuda(x, cb, e2)
+            if not torch.equal(first, nearest_cuda(x, cb, e2)):
+                raise AssertionError(f"kernel ({n}, {d}, {k}): two launches differ")
+            want = vq.nearest_indices(x, cb, e2)
+            torch.cuda.synchronize()
+            mism, gap = check_codes(x, cb, first.long(), want, f"kernel ({n}, {d}, {k})")
+            max_err = max(max_err, gap)
+            report.append(f"({n},{d},{k}): {mism} tie rows differ")
+
+        def exact(label, x, cb, want):
+            got = nearest_cuda(x, cb, (cb * cb).sum(1)).cpu()
+            if not torch.equal(got, want.to(torch.int32).cpu()):
+                bad = torch.nonzero(got != want.to(torch.int32).cpu()).flatten()
+                raise AssertionError(f"{label}: {bad.numel()} rows wrong, first {bad[:5].tolist()} got "
+                                     f"{got[bad[:5]].tolist()}")
+
+        # every code twice, the copy in the upper half: the lower index must win,
+        # within one slice (N large) and across the cluster's slices (N = 1,608)
+        for n in (8 * 201, N_SERVE):
+            x = torch.randn(n, 64, generator=gen, device=dev)
+            half = torch.randn(512, 64, generator=gen, device=dev)
+            cb = torch.cat([half, half])
+            want = vq.nearest_indices(x, half, (half * half).sum(1))
+            got = nearest_cuda(x, cb, (cb * cb).sum(1)).long()
+            if bool((got >= 512).any()):
+                raise AssertionError(f"duplicated codebook rows at N={n}: {int((got >= 512).sum())} rows took the copy")
+            check_codes(x, half, got, want, f"duplicated codebook rows at N={n}")
+        # a zero row scores +0.0 on code 3 (a zero row) and -0.0 on code 700
+        # (e2 = -0.0 given by hand); they tie, so the lower index wins
+        cb = torch.randn(1024, 64, generator=gen, device=dev) + 3.0
+        cb[3] = 0.0
+        cb[700] = 0.0
+        e2 = (cb * cb).sum(1)
+        e2[700] = -0.0
+        x = torch.zeros(1608, 64, device=dev)
+        got = nearest_cuda(x, cb, e2).cpu()
+        if not torch.equal(got, torch.full((1608,), 3, dtype=torch.int32)):
+            raise AssertionError(f"+0.0 against -0.0 must go to the lower code 3, got {got.unique().tolist()}")
+        x = torch.randn(300, 64, generator=gen, device=dev)
+        x[7] = float("nan")
+        cb = torch.randn(1024, 64, generator=gen, device=dev)
+        got = nearest_cuda(x, cb, (cb * cb).sum(1))
+        if int(got[7]) != 0:
+            raise AssertionError(f"a row of NaN must take code 0, got {int(got[7])}")
+        exact("all ties", torch.ones(8, 4, device=dev), torch.ones(6, 4, device=dev), torch.zeros(8))
+        exact("all ties across slices", torch.ones(1608, 64, device=dev), torch.ones(1024, 64, device=dev),
+              torch.zeros(1608))
+    phase(2, f"kernel == plain, two launches equal, at {'; '.join(report)}; duplicated codebook rows, +-0.0 scores "
+             f"and all ties -> the lower index; a NaN row -> code 0; max float64 score gap on differing rows {max_err}")
+    return max_err
+
+
 def check_accum(vq, grad_cuda, stats_cuda, dev) -> float:
     """Phase 5: both kernel modes against the plain versions, and two
     launches bitwise equal. Returns the largest |kernel - plain|."""
@@ -178,14 +464,13 @@ def check_accum(vq, grad_cuda, stats_cuda, dev) -> float:
     gen = torch.Generator(device=dev).manual_seed(5)
     worst = 0.0
     report = []
-    cases = [(SPEECH_N, SPEECH_D, SPEECH_K, False), (RIR_N, 64, 1024, False), (100, 4, 16, False),
-             (513, 129, 100, False), (SPEECH_N, SPEECH_D, SPEECH_K, True)]
-    for n, d, k, skewed in cases:
+    cases = [(SPEECH_N, SPEECH_D, SPEECH_K, "uniform"), (RIR_N, 64, 1024, "uniform"), (100, 4, 16, "uniform"),
+             (513, 129, 100, "uniform"), (SPEECH_N, SPEECH_D, SPEECH_K, "one code"),
+             (SPEECH_N, SPEECH_D, SPEECH_K, "32 codes"), (20000, 4, 16, "uniform"), (3000, 129, 1024, "32 codes"),
+             (70001, 30, 9, "uniform")]
+    for n, d, k, kind in cases:
         x = torch.randn(n, d, generator=gen, device=dev)
-        if skewed:  # every row on one code
-            idx = torch.full((n,), k // 2, dtype=torch.int32, device=dev)
-        else:
-            idx = torch.randint(0, k, (n,), generator=gen, device=dev, dtype=torch.int32)
+        idx = accum_indices(kind, n, k, gen)
         grad = grad_cuda(idx, x, k)
         counts, sums = stats_cuda(idx, x, k)
         want_counts, want_sums = vq.codebook_stats_plain(idx, x.double(), k)
@@ -194,7 +479,7 @@ def check_accum(vq, grad_cuda, stats_cuda, dev) -> float:
         again = stats_cuda(idx, x, k)
         same = same and torch.equal(counts, again[0]) and torch.equal(sums, again[1])
         torch.cuda.synchronize()
-        label = f"({n}, {d}, {k}{', skewed' if skewed else ''})"
+        label = f"({n}, {d}, {k}, {kind})"
         for name, got, want in (("grad", grad, want_grad), ("sums", sums, want_sums)):
             err = float((got - want).abs().max())
             limit = ACCUM_RTOL * max(1.0, float(want.abs().max()))
@@ -411,7 +696,6 @@ def yardstick_step_ms(trainer, data, tf32: bool, deterministic: bool, steps: int
 
 def main() -> int:
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -445,30 +729,18 @@ def main() -> int:
              f"of {list(kernels.SOURCES)} in {build_s:.2f} s")
     for source, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}", flush=True)
 
+    if KERNELS_ONLY in sys.argv[1:]:
+        check_nearest(vq, nearest_indices_cuda, dev)
+        check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
+        time_serving_kernels(dev, card)
+        time_training_kernels(dev, card)
+        return 0
+
     # ---- phase 2: kernel vs plain on the card
-    gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = 0.0
-    report = []
-    with full_fp32():
-        for n, d, k in [(N_SERVE, 64, 1024), (8 * 201, 64, 1024), (SPEECH_N, SPEECH_D, SPEECH_K),
-                        (RIR_N, 64, 1024), (100, 4, 16), (513, 128, 100)]:
-            x = torch.randn(n, d, generator=gen, device=dev)
-            cb = torch.randn(k, d, generator=gen, device=dev)
-            e2 = (cb * cb).sum(1)
-            got = nearest_indices_cuda(x, cb, e2).long()
-            want = vq.nearest_indices(x, cb, e2)
-            torch.cuda.synchronize()
-            mism, gap = check_codes(x, cb, got, want, f"kernel ({n}, {d}, {k})")
-            max_err = max(max_err, gap)
-            report.append(f"({n},{d},{k}): {mism} tie rows differ")
-        ties = nearest_indices_cuda(torch.ones(8, 4, device=dev), torch.ones(6, 4, device=dev), torch.full((6,), 4.0, device=dev))
-        if not torch.equal(ties.cpu(), torch.zeros(8, dtype=torch.int32)):
-            raise AssertionError(f"all-ties rows must take code 0, got {ties.tolist()}")
-    phase(2, f"kernel == plain at {'; '.join(report)}; all-ties -> first index; "
-             f"max float64 score gap on differing rows {max_err}")
+    max_err = check_nearest(vq, nearest_indices_cuda, dev)
 
     # ---- phase 3: the slice at full width, card vs CPU
     cfg = DatasetConfig()
@@ -565,22 +837,10 @@ def main() -> int:
                      f"card busy {busy_us / 5 / 1e3:.4f} ms ({busy_us / wall_us:.1%}); "
                      f"kernels by device time: {tops}")
 
-    n, d, k = N_SERVE, 64, 1024
-    x = torch.randn(n, d, generator=gen, device=dev)
-    cb = torch.randn(k, d, generator=gen, device=dev)
-    e2 = (cb * cb).sum(1)
-    with full_fp32():
-        kernel_ms = event_ms(lambda: nearest_indices_cuda(x, cb, e2))
-        plain_ms = event_ms(lambda: vq.nearest_indices(x, cb, e2))
-        library_ms = event_ms(lambda: torch.addmm(e2, x, cb.T, alpha=-2).argmin(1))
-    flops = 2 * n * k * d
-    nbytes = 4 * (n * d + k * d + k) + 4 * n
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    phase(4, f"vq_nearest at N={n}, D={d}, K={k}: kernel {kernel_ms:.5f} ms, bound {bound_ms:.5f} ms "
-             f"({flops} FP32 ops, {nbytes} bytes), plain version {plain_ms:.5f} ms, "
-             f"library addmm+argmin {library_ms:.5f} ms, all at TF32 off ({card})")
-    del outs, x, cb, e2
+    near_serve = time_serving_kernels(dev, card)
+    del outs
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()  # the capture stream's, or it counts in phase 7's peak memory
     torch.cuda.empty_cache()
 
     # ---- phase 5: the codebook-accumulation kernel vs plain on the card
@@ -646,39 +906,9 @@ def main() -> int:
         del trainer
         torch.cuda.empty_cache()
 
-    # each kernel at its speech shape
-    n, d, k = SPEECH_N, SPEECH_D, SPEECH_K
-    x = torch.randn(n, d, generator=g7, device=dev)
-    cb = torch.randn(k, d, generator=g7, device=dev)
-    e2 = (cb * cb).sum(1)
-    idx = torch.randint(0, k, (n,), generator=g7, device=dev, dtype=torch.int32)
-    idx64 = idx.long()
-    x1 = torch.cat([x, torch.ones(n, 1, device=dev)], 1)
-    with full_fp32():
-        near_speech = (event_ms(lambda: nearest_indices_cuda(x, cb, e2)),
-                       event_ms(lambda: vq.nearest_indices(x, cb, e2)),
-                       event_ms(lambda: torch.addmm(e2, x, cb.T, alpha=-2).argmin(1)))
-        accum = {}
-        for name, fn, plain, counts in (
-            ("vq_codebook_grad", lambda: codebook_grad_cuda(idx, x, k), lambda: vq.codebook_grad_plain(idx, x, k), False),
-            ("vq_codebook_stats", lambda: codebook_stats_cuda(idx, x, k), lambda: vq.codebook_stats_plain(idx, x, k), True),
-        ):
-            lib = event_ms(lambda: torch.zeros(k, d, device=dev).index_add_(0, idx64, x))
-            gemm = event_ms(lambda: F.one_hot(idx64, k).float().T @ (x1 if counts else x))
-            bnd, by, ops, nb = accum_bound(n, d, k, counts)
-            accum[name] = dict(ms=event_ms(fn), plain_ms=event_ms(plain), library_ms=lib, bound_ms=bnd, bound_by=by)
-            per_step = train_launches["speech EMA" if counts else "speech"][
-                "codebook_stats_cuda" if counts else "codebook_grad_cuda"]
-            phase(7, f"{name} at N={n}, D={d}, K={k}: kernel {accum[name]['ms']:.5f} ms, bound {bnd:.5f} ms "
-                     f"({nb} bytes, {ops} adds), {per_step} launch(es) per train step, plain version "
-                     f"{accum[name]['plain_ms']:.5f} ms, library index_add_ {lib:.5f} ms"
-                     f"{' (sums only)' if counts else ''}, one-hot GEMM {gemm:.5f} ms ({card})")
-    near_flops = 2 * n * k * d
-    near_bound = max(near_flops / PEAK_FP32_FLOPS, 4 * (n * d + k * d + k + n) / PEAK_HBM_BYTES) * 1e3
-    phase(7, f"vq_nearest at the speech shape N={n}, D={d}, K={k}: kernel {near_speech[0]:.5f} ms, bound "
-             f"{near_bound:.5f} ms ({near_flops} FP32 ops), {train_launches['speech']['nearest_indices_cuda']} "
-             f"launch(es) per train step, plain version {near_speech[1]:.5f} ms, library addmm+argmin "
-             f"{near_speech[2]:.5f} ms ({card})")
+    _, accum = time_training_kernels(dev, card)
+    phase(7, f"launches per train step: speech {train_launches['speech']}, speech EMA {train_launches['speech EMA']}, "
+             f"rir {train_launches['rir']}")
 
     def accum_entry(name, source_line, label, counter):
         return {"name": name, "route": "cuda",
@@ -693,11 +923,7 @@ def main() -> int:
         "replaces": "src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:49",
         "launches": sum(launches.values()) + sum(t["nearest_indices_cuda"] for t in train_launches.values()),
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        **near_serve,
     }, accum_entry("vq_codebook_grad", 68, "speech", "codebook_grad_cuda"),
         accum_entry("vq_codebook_stats", 150, "speech EMA", "codebook_stats_cuda"),
     ]}), flush=True)

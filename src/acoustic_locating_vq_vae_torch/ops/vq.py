@@ -116,9 +116,8 @@ class _Assign(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _, grad_q):
         (indices,) = ctx.saved_tensors
-        d_x = torch.zeros_like(grad_q) if ctx.needs_input_grad[0] else None
         d_cb = codebook_grad(indices, grad_q, ctx.num_embeddings) if ctx.needs_input_grad[1] else None
-        return d_x, d_cb
+        return None, d_cb  # None: autograd's zero, no (N, D) tensor is made for it
 
 
 def assign(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

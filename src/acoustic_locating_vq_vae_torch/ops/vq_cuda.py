@@ -18,6 +18,7 @@ that its main path went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -40,14 +41,17 @@ def _launcher():
 
 @functools.cache
 def _accum_launcher():
-    lib = library("vq_codebook_accum.cu")
-    scratch = lib.vq_codebook_accum_scratch_floats
-    scratch.argtypes = [ctypes.c_int] * 4
-    scratch.restype = ctypes.c_longlong
-    fn = lib.vq_codebook_accum_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = library("vq_codebook_accum.cu").vq_codebook_accum_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return scratch, fn
+    return fn
+
+
+def _on(device: torch.device):
+    """The device to launch on: entered only where it is not the current one."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _check(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tensor) -> None:
@@ -82,9 +86,8 @@ def nearest_indices_cuda(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch
     n, d = flat_x.shape
     k = codebook.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=flat_x.device)
-    with torch.cuda.device(flat_x.device):
-        launch = _launcher()
-        err = launch(
+    with _on(flat_x.device):
+        err = _launcher()(
             flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(),
             n, k, d, torch.cuda.current_stream().cuda_stream,
         )
@@ -120,16 +123,15 @@ def _check_accum(idx: torch.Tensor, g: torch.Tensor, k: int) -> None:
 
 def _accumulate(idx: torch.Tensor, g: torch.Tensor, k: int, with_counts: bool):
     n, d = g.shape
-    out = torch.empty(k, d, dtype=torch.float32, device=g.device)
-    counts = torch.empty(k, dtype=torch.float32, device=g.device) if with_counts else None
-    with torch.cuda.device(g.device):
-        scratch_floats, launch = _accum_launcher()
-        size = scratch_floats(n, k, d, int(with_counts))
-        scratch = torch.empty(size, dtype=torch.float32, device=g.device) if size else None
-        err = launch(
+    if with_counts:  # one allocation holds the sums and, behind them, the counts
+        buf = torch.empty(k * d + k, dtype=torch.float32, device=g.device)
+        out, counts = buf[: k * d].view(k, d), buf[k * d:]
+    else:
+        out, counts = torch.empty(k, d, dtype=torch.float32, device=g.device), None
+    with _on(g.device):
+        err = _accum_launcher()(
             idx.data_ptr(), g.data_ptr(), out.data_ptr(),
             counts.data_ptr() if with_counts else None,
-            scratch.data_ptr() if scratch is not None else None,
             n, k, d, torch.cuda.current_stream().cuda_stream,
         )
     if err:

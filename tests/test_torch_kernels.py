@@ -21,7 +21,10 @@ from acoustic_locating_vq_vae_torch.ops import vq
 from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
 from acoustic_locating_vq_vae_torch.train import JointLocationTask, LocationTask, SpeechVQVAETask, Trainer
 
-SHAPES = [(512, 128, 1024), (100, 4, 16), (1000, 64, 1024), (513, 128, 100), (12864, 64, 1024)]
+SHAPES = [(512, 128, 1024), (100, 4, 16), (1000, 64, 1024), (513, 128, 100), (12864, 64, 1024),
+          # the kernel's other branches: the codebook split over a cluster (N = 1,608), K off and below a
+          # code tile, D off the 16-byte pieces, D above the resident x tile
+          (1608, 64, 1024), (1608, 64, 100), (1608, 64, 16), (1000, 129, 300), (300, 6, 1024), (2000, 256, 520)]
 
 
 @pytest.fixture
@@ -55,6 +58,55 @@ def test_kernel_matches_plain_on_card(card, n, d, k):
 def test_kernel_ties_take_the_first_index(card):
     got = nearest_indices_cuda(torch.ones(70, 4, device=card), torch.ones(90, 4, device=card), torch.full((90,), 4.0, device=card))
     assert torch.equal(got.cpu(), torch.zeros(70, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(1608, 64, 1024), (12864, 64, 1024), (700, 129, 300)])
+def test_two_launches_give_equal_indices(card, n, d, k):
+    """Also where the codebook is split over a cluster (N = 1,608): the merge
+    does not depend on the order in which the blocks finish."""
+    g = torch.Generator().manual_seed(n)
+    x, cb = torch.randn(n, d, generator=g).to(card), torch.randn(k, d, generator=g).to(card)
+    e2 = (cb * cb).sum(1)
+    first = nearest_indices_cuda(x, cb, e2)
+    for _ in range(3):
+        assert torch.equal(first, nearest_indices_cuda(x, cb, e2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1608, 12864], ids=["split_codebook", "one_slice"])
+def test_duplicated_codebook_rows_take_the_lower_index_on_card(card, n):
+    """Every code twice, the copy in the upper half, which another block of
+    the cluster scans at N = 1,608: no row may take the copy."""
+    g = torch.Generator().manual_seed(1)
+    x, half = torch.randn(n, 64, generator=g).to(card), torch.randn(512, 64, generator=g).to(card)
+    cb = torch.cat([half, half])
+    got = nearest_indices_cuda(x, cb, (cb * cb).sum(1))
+    assert int(got.max()) < 512
+    with full_fp32():
+        want = vq.nearest_indices(x, half, (half * half).sum(1))
+    assert int((got.long() != want).sum()) <= 1e-3 * n  # near ties between summation orders only
+
+
+@pytest.mark.cuda
+def test_zero_scores_and_nan_rows_on_card(card):
+    """+0.0 and -0.0 are equal scores (the lower code wins), all ties across
+    the cluster's slices go to code 0, and a row of NaN takes code 0."""
+    g = torch.Generator().manual_seed(2)
+    cb = (torch.randn(1024, 64, generator=g) + 3.0).to(card)
+    cb[3] = 0.0
+    cb[700] = 0.0
+    e2 = (cb * cb).sum(1)
+    e2[700] = -0.0
+    got = nearest_indices_cuda(torch.zeros(1608, 64, device=card), cb, e2)
+    assert torch.equal(got.cpu(), torch.full((1608,), 3, dtype=torch.int32))
+    ones = nearest_indices_cuda(torch.ones(1608, 64, device=card), torch.ones(1024, 64, device=card),
+                                torch.full((1024,), 64.0, device=card))
+    assert torch.equal(ones.cpu(), torch.zeros(1608, dtype=torch.int32))
+    x = torch.randn(300, 64, generator=g).to(card)
+    x[7] = float("nan")
+    cb = torch.randn(1024, 64, generator=g).to(card)
+    assert int(nearest_indices_cuda(x, cb, (cb * cb).sum(1))[7]) == 0
 
 
 @pytest.mark.cuda
@@ -111,10 +163,21 @@ def test_serving_on_card_matches_cpu(card, frozen):
 ACCUM_SHAPES = [(16000, 128, 1024), (6432, 64, 1024), (100, 4, 16), (513, 129, 100)]
 
 
-def _accum_inputs(n, d, k, card, skewed=False):
+# few codes in use, as early in training; D = 4 and D = 129 over several scan rounds
+ACCUM_FEW = [(16000, 128, 1024, "one code"), (16000, 128, 1024, "32 codes"), (3000, 129, 1024, "32 codes"),
+             (20000, 4, 64, "32 codes"), (70001, 30, 9, "uniform")]
+
+
+def _accum_inputs(n, d, k, card, kind="uniform"):
     g = torch.Generator().manual_seed(n + d + k)
     x = torch.randn(n, d, generator=g).to(card)
-    idx = torch.full((n,), 3, dtype=torch.int32) if skewed else torch.randint(0, k, (n,), generator=g, dtype=torch.int32)
+    if kind == "one code":
+        idx = torch.full((n,), 3, dtype=torch.int32)
+    elif kind == "32 codes":
+        used = torch.randperm(k, generator=g)[:32].to(torch.int32)
+        idx = used[torch.randint(0, 32, (n,), generator=g)]
+    else:
+        idx = torch.randint(0, k, (n,), generator=g, dtype=torch.int32)
     return idx.to(card), x
 
 
@@ -126,10 +189,11 @@ def _close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,k,skewed", [s + (False,) for s in ACCUM_SHAPES] + [(16000, 128, 1024, True)],
-                         ids=[f"{n}x{d}x{k}" for n, d, k in ACCUM_SHAPES] + ["skewed"])
-def test_codebook_accum_matches_plain_and_is_deterministic(card, n, d, k, skewed):
-    idx, x = _accum_inputs(n, d, k, card, skewed)
+@pytest.mark.parametrize("n,d,k,kind", [s + ("uniform",) for s in ACCUM_SHAPES] + ACCUM_FEW,
+                         ids=[f"{n}x{d}x{k}" for n, d, k in ACCUM_SHAPES] + ["skewed"]
+                         + [f"{n}x{d}x{k}-{kind.replace(' ', '_')}" for n, d, k, kind in ACCUM_FEW[1:]])
+def test_codebook_accum_matches_plain_and_is_deterministic(card, n, d, k, kind):
+    idx, x = _accum_inputs(n, d, k, card, kind)
     grad = codebook_grad_cuda(idx, x, k)
     counts, sums = codebook_stats_cuda(idx, x, k)
     # the plain version in float64: its FP32 index_add_ on the card sums by
@@ -141,6 +205,25 @@ def test_codebook_accum_matches_plain_and_is_deterministic(card, n, d, k, skewed
     assert torch.equal(grad, codebook_grad_cuda(idx, x, k))
     again = codebook_stats_cuda(idx, x, k)
     assert torch.equal(counts, again[0]) and torch.equal(sums, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [False, True], ids=["gradient", "statistics"])
+def test_codebook_accum_allocates_no_scratch(card, with_counts):
+    """One launch into one allocation: the call's peak memory is its result."""
+    n, d, k = 16000, 128, 1024
+    idx, x = _accum_inputs(n, d, k, card)
+    fn = codebook_stats_cuda if with_counts else codebook_grad_cuda
+    fn(idx, x, k)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(idx, x, k)
+    torch.cuda.synchronize()
+    result_bytes = 4 * (k * d + (k if with_counts else 0))
+    assert torch.cuda.max_memory_allocated() - before <= result_bytes + 512  # the allocator rounds to 512 bytes
+    assert torch.cuda.memory_allocated() - before <= result_bytes + 512
+    del out
 
 
 @pytest.mark.cuda

@@ -18,6 +18,9 @@ from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
 # the shapes of tests/test_vq_pallas.py: aligned speech geometry, everything
 # ragged, RIR geometry, row and codebook padding
 SHAPES = [(512, 128, 1024), (100, 4, 16), (1000, 64, 1024), (513, 128, 100)]
+# what the CUDA kernel's branches are held to: D off its 16-byte pieces and
+# above its resident x tile, K below one code tile, rows over several row tiles
+KERNEL_SHAPES = [(300, 129, 40), (200, 64, 16), (300, 6, 1024), (700, 256, 130)]
 
 
 def _inputs(n, d, k, seed=0):
@@ -28,7 +31,7 @@ def _inputs(n, d, k, seed=0):
     )
 
 
-@pytest.mark.parametrize("n,d,k", SHAPES)
+@pytest.mark.parametrize("n,d,k", SHAPES + KERNEL_SHAPES)
 def test_nearest_codebook_matches_jax(n, d, k):
     x, cb = _inputs(n, d, k)
     idx, q = vq.nearest_codebook(torch.from_numpy(x), torch.from_numpy(cb))
@@ -47,6 +50,40 @@ def test_ties_resolve_identically():
     idx_p, _ = nearest_codebook_pallas(jnp.asarray(x), jnp.asarray(cb))
     np.testing.assert_array_equal(idx.numpy(), np.zeros(8))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_p))
+
+
+@pytest.mark.parametrize("n", [200, 1608], ids=["one_row_tile", "serving_b8"])
+def test_duplicated_codebook_rows_take_the_lower_index(n):
+    """Every code appears twice, the copy in the upper half: equal scores go
+    to the lower index on every row, in the plain version as in Pallas."""
+    x, half = _inputs(n, 64, 512, seed=7)
+    cb = np.concatenate([half, half])
+    e2 = torch.from_numpy((cb * cb).sum(1))
+    idx = vq.nearest_indices(torch.from_numpy(x), torch.from_numpy(cb), e2)
+    idx_p, _ = nearest_codebook_pallas(jnp.asarray(x), jnp.asarray(cb))
+    assert int(idx.max()) < 512
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_p))
+    np.testing.assert_array_equal(idx.numpy(), vq.nearest_codebook(torch.from_numpy(x), torch.from_numpy(half))[0].numpy())
+
+
+@pytest.mark.parametrize("minus_zero", [False, True], ids=["plus_zero", "minus_zero"])
+def test_zero_scores_tie_toward_the_lower_index(minus_zero):
+    """A row of zeros against two zero codebook rows scores 0.0 on both; with
+    the later one's squared norm handed in as -0.0 the scores are +0.0 and
+    -0.0, which are equal, so the lower index still wins."""
+    rng = np.random.default_rng(8)
+    cb = (rng.standard_normal((1024, 64)) + 3.0).astype(np.float32)
+    cb[3] = 0.0
+    cb[700] = 0.0
+    x = np.zeros((130, 64), np.float32)
+    e2 = torch.from_numpy((cb * cb).sum(1))
+    if minus_zero:
+        e2[700] = -0.0
+        assert bool(torch.signbit(e2[700])) and not bool(torch.signbit(e2[3]))
+    idx = vq.nearest_indices(torch.from_numpy(x), torch.from_numpy(cb), e2)
+    idx_p, _ = nearest_codebook_pallas(jnp.asarray(x), jnp.asarray(cb))
+    np.testing.assert_array_equal(idx.numpy(), np.full(130, 3))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_p))
 
 
@@ -124,7 +161,7 @@ def test_codebook_gradient_matches_jax(n, d, k):
     for name, w in want.items():
         np.testing.assert_allclose(cbt.grad.numpy(), w, rtol=1e-4, atol=1e-5, err_msg=name)
         np.testing.assert_allclose(plain.numpy(), w, rtol=1e-4, atol=1e-5, err_msg=name)
-    assert float(xt.grad.abs().max()) == 0.0
+    assert xt.grad is None  # autograd's zero: the backward makes no (N, D) tensor for it
 
 
 @pytest.mark.parametrize("n,d,k", GRAD_SHAPES)
@@ -137,6 +174,32 @@ def test_codebook_stats_match_pallas(n, d, k):
     assert counts.dtype == torch.float32
     np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_j))
     np.testing.assert_allclose(sums.numpy(), np.asarray(sums_j), rtol=1e-5, atol=1e-6)
+
+
+def _skewed_indices(kind, n, k, rng):
+    """Code ids as early training gives them: few codes in use."""
+    if kind == "one_code":
+        return np.full(n, k // 2, np.int32)
+    used = rng.choice(k, 32, replace=False)
+    return used[rng.integers(0, 32, n)].astype(np.int32)
+
+
+@pytest.mark.parametrize("n,d,k", [(2000, 16, 1024), (700, 129, 100)])
+@pytest.mark.parametrize("kind", ["32_codes", "one_code"])
+def test_codebook_accumulation_on_few_codes_matches_pallas(kind, n, d, k):
+    """32 codes or one code in use: the plain gradient and statistics against
+    codebook_stats_pallas, counts exact, sums rtol 1e-5 (atol 1e-5: a sum of
+    up to 2000 FP32 rows in another order)."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    idx = _skewed_indices(kind, n, k, rng)
+    counts_j, sums_j = codebook_stats_pallas(jnp.asarray(idx), jnp.asarray(x), k)
+    counts, sums = vq.codebook_stats_plain(torch.from_numpy(idx), torch.from_numpy(x), k)
+    grad = vq.codebook_grad_plain(torch.from_numpy(idx), torch.from_numpy(x), k)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_j))
+    assert int((counts > 0).sum()) == (1 if kind == "one_code" else 32)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(sums_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(sums_j), rtol=1e-5, atol=1e-5)
 
 
 def _vq_inputs(seed=4):
