@@ -30,24 +30,44 @@ nothing of JAX. Phases, one line each (more for detail):
    scan rounds), and bitwise equal over two launches;
 6. the training slice at full width: train steps of the speech VQ-VAE
    (gradient codebook at three seeds, EMA codebook at one) and of the RIR
-   VQ-VAE (three seeds) at B = 4 on the card and on the CPU from the same
+   VQ-VAE (three seeds) at B = 8 on the card and on the CPU from the same
    seeded weights, batch and jitter decisions; codes, loss, metrics and the EMA
    buffers agree, every card gradient lies within GRAD_RTOL of the same step in
    float64, and a repeat of the card's step is bitwise equal; the gradients of
    control steps (cuDNN's default algorithms, TF32) are printed beside it;
    launch counts show the steps went through the kernels;
 7. timings on the card: median train step and frames/s at B = 32 for both
-   stages, a profiler breakdown of the speech step, yardstick steps with TF32
-   allowed (speech) and with cuDNN's default algorithms (both stages), and each
-   kernel at the speech and RIR shapes (the accumulation also with 32 codes
-   and one code in use, and with a cold L2) beside its bound, its plain
-   version and library yardsticks.
+   stages and the speech stage's EMA mode, a profiler breakdown of the speech
+   step, yardstick steps with TF32 allowed (speech) and with cuDNN's default
+   algorithms (each stage), and each kernel at the speech and RIR shapes (the
+   accumulation also with 32 codes and one code in use, and with a cold L2)
+   beside its bound, its plain version and library yardsticks;
+8. the composite and location stages at full width: one train step each of
+   the echoed stage (uncached and from the frozen-latent cache), the finetune
+   stage, the frozen location stage (uncached and cached) and the joint stage
+   (sincos + radius, tail term) at B = 4 on the card and on the CPU from the
+   same seeded weights (codebooks of latent rows), batch and jitter decisions:
+   codes under the tie rule, loss and metrics within LOSS_RTOL, every trained
+   gradient within GRAD_RTOL (the location stage's within LOCATION_GRAD_RTOL)
+   of the same step in float64 on the CPU, a TF32 control step's gradients
+   printed beside it, the cached loss within CACHE_RTOL of the uncached one on
+   the card, the echoed branches bitwise unchanged over three steps, and the
+   kernels' launches per step (vq_nearest once per frozen branch run, the
+   accumulation never);
+9. timings on the card: each of those stages' train step at its own batch
+   size (echoed and finetune B = 64, frames/s = 64 x 500 / step time; location
+   and joint B = 16), the cache build per sample, peak memory, a profiler
+   breakdown of each step, and vq_nearest at the two shapes these stages add
+   (N = 32,000, D = 128 and N = 3,216, D = 64).
 
 A kernel's time is read twice: on the card (some tens of calls captured in one
 CUDA graph and replayed between two events, so no host work lies between the
 launches) and as the enqueue time (two events around back-to-back Python
 calls, which for a call of tens of microseconds is the host's launch rate).
-The ``kernels`` line carries the card's time.
+The ``kernels`` line carries the card's time, one entry for each kernel and
+shape that was both timed and run by the main path's checked and timed runs
+(phases 3 and 6 to 9), with the launches counted at that shape
+(``count_by_shape``).
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -55,6 +75,7 @@ Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -79,6 +100,8 @@ TRAIN_B = 32  # the stages' batch size
 CHECK_B = 4  # the card-vs-CPU step (the CPU side costs ~0.4 TFLOP at full width)
 SPEECH_N, SPEECH_D, SPEECH_K = TRAIN_B * 500, 128, 1024  # the speech stage's VQ rows
 RIR_N = TRAIN_B * 201  # the RIR stage's VQ rows, D = 64, K = 1024
+ECHOED_N = 64 * 500  # the echoed and finetune stages' speech-branch VQ rows at B = 64, D = 128
+LOCATION_N = 16 * 201  # the location and joint stages' RIR-branch VQ rows at B = 16, D = 64
 GRAD_SEEDS = (6, 60, 600)  # phase 6's gradient-mode steps; the EMA step uses the first
 LOSS_RTOL = 1e-4
 # Every gradient of the card's step must lie within GRAD_RTOL of its largest
@@ -87,6 +110,11 @@ LOSS_RTOL = 1e-4
 # to 5.9e-3 (the speech stage's gradients are ill-conditioned), TF32 steps
 # 5.0e-2 to 0.17; 1e-2 passes the first and fails the second.
 GRAD_RTOL = 1e-2
+# The location stage trains the head alone, whose gradients pass through no
+# ill-conditioned convolution: full-FP32 steps, on the card or on the CPU,
+# read 2.3e-7 to 3.5e-7 of their max from float64, its TF32 control step
+# 5.6e-4 (PERF.md), so the stage has a limit of its own between the two.
+LOCATION_GRAD_RTOL = 1e-5
 # of max(1, max |plain|), the plain version run in float64: the kernel sums
 # FP32 rows in its own fixed order
 ACCUM_RTOL = 1e-5
@@ -98,6 +126,45 @@ KERNELS_ONLY = "--kernels"
 
 def phase(n: int, msg: str) -> None:
     print(f"phase {n}: {msg}", flush=True)
+
+
+# (kernel, N, D, K) -> launches at that shape in the main path's runs opened with count_by_shape
+SHAPE_LAUNCHES = collections.Counter()
+# (kernel, N, D, K) -> the kernel's timing at that shape (time_nearest, time_accum on uniform indices)
+SHAPE_TIMINGS = {}
+
+
+@contextlib.contextmanager
+def count_by_shape():
+    """While open, every launch that the port makes through ``ops.vq`` (the main path's only way to the
+    kernels) is also counted in SHAPE_LAUNCHES under its kernel and shape: each wrapper is called through
+    a recorder that adds the change of the wrapper's own count. This script's direct calls of the
+    wrappers (the kernels against their plain versions, the kernel timings) do not pass through ``ops.vq``
+    and are not counted."""
+    from acoustic_locating_vq_vae_torch.ops import vq
+
+    shapes = {
+        "nearest_indices_cuda": ("vq_nearest", lambda x, cb, e2: (x.shape[0], x.shape[1], cb.shape[0])),
+        "codebook_grad_cuda": ("vq_codebook_grad", lambda idx, g, k: (g.shape[0], g.shape[1], k)),
+        "codebook_stats_cuda": ("vq_codebook_stats", lambda idx, x, k: (x.shape[0], x.shape[1], k)),
+    }
+
+    def recorder(wrapper, kernel, shape):
+        def call(*args):
+            before = wrapper.launches
+            out = wrapper(*args)
+            SHAPE_LAUNCHES[(kernel, *shape(*args))] += wrapper.launches - before
+            return out
+        return call
+
+    saved = {name: getattr(vq, name) for name in shapes}
+    for name, (kernel, shape) in shapes.items():
+        setattr(vq, name, recorder(saved[name], kernel, shape))
+    try:
+        yield
+    finally:
+        for name, wrapper in saved.items():
+            setattr(vq, name, wrapper)
 
 
 def check_codes(x, codebook, got, want, label: str):
@@ -231,9 +298,12 @@ def device_breakdown(serve, inputs, top: int = 6):
             serve(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a user annotation (Optimizer.step#Adam.step) carries the device time of the kernels under it: leave
+    # it out, as torch's own tables do, or those kernels count twice
     on_card = [
         e for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     on_card.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in on_card)
@@ -280,7 +350,8 @@ def time_nearest(ph: int, n: int, d: int, k: int, gen, card: str) -> dict:
     phase(ph, f"vq_nearest at N={n}, D={d}, K={k}: kernel {fmt_ms(kern)}; bound {bound:.5f} ms "
               f"({flops} FP32 ops, {nbytes} bytes); plain version {fmt_ms(plain)}; library addmm+argmin "
               f"{fmt_ms(lib)}; TF32 off ({card})")
-    return dict(ms=kern[0], plain_ms=plain[0], bound_ms=bound, bound_by=by, library_ms=lib[0])
+    SHAPE_TIMINGS[("vq_nearest", n, d, k)] = dict(ms=kern[0], plain_ms=plain[0], bound_ms=bound, bound_by=by,
+                                                   library_ms=lib[0])
 
 
 def accum_indices(kind: str, n: int, k: int, gen):
@@ -309,7 +380,6 @@ def time_accum(ph: int, n: int, d: int, k: int, kind: str, gen, card: str, extra
     x = torch.randn(n, d, generator=gen, device=dev)
     idx = accum_indices(kind, n, k, gen)
     idx64 = idx.long()
-    out = {}
     lib = both_ms(lambda: torch.zeros(k, d, device=dev).index_add_(0, idx64, x))
     for name, fn, plain, counts in (
         ("vq_codebook_grad", lambda: codebook_grad_cuda(idx, x, k), lambda: vq.codebook_grad_plain(idx, x, k), False),
@@ -319,7 +389,9 @@ def time_accum(ph: int, n: int, d: int, k: int, kind: str, gen, card: str, extra
         # bincount reads its maximum back to the host, which a graph cannot capture
         pl = both_ms(plain, capturable=not counts)
         bnd, by, ops, nb = accum_bound(n, d, k, counts)
-        out[name] = dict(ms=kern[0], plain_ms=pl[0], library_ms=lib[0], bound_ms=bnd, bound_by=by)
+        if kind == "uniform":
+            SHAPE_TIMINGS[(name, n, d, k)] = dict(ms=kern[0], plain_ms=pl[0], library_ms=lib[0], bound_ms=bnd,
+                                                  bound_by=by)
         phase(ph, f"{name} at N={n}, D={d}, K={k}, {kind} indices: kernel {fmt_ms(kern)}; bound {bnd:.5f} ms "
                   f"({nb} bytes, {ops} adds); plain version {fmt_ms(pl)}"
                   f"{' (profiler sum: bincount is not capturable)' if counts else ''}; library index_add_ "
@@ -337,7 +409,6 @@ def time_accum(ph: int, n: int, d: int, k: int, kind: str, gen, card: str, extra
         phase(ph, f"the same over eight input sets in turn (cold L2), on the card: "
                   + ", ".join(f"{name} {t:.5f} ms" for name, t in cold.items())
                   + f"; one-hot GEMM {fmt_ms(gemm[0])}, on [x | 1] {fmt_ms(gemm[1])} ({card})")
-    return out
 
 
 def launch_floor(ph: int, card: str):
@@ -359,29 +430,38 @@ def launch_floor(ph: int, card: str):
     return floor
 
 
-def time_serving_kernels(dev, card: str) -> dict:
+def time_serving_kernels(dev, card: str) -> None:
     """Phase 4's kernel timings: vq_nearest at the serving shapes."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(4)
     launch_floor(4, card)
     time_nearest(4, 8 * 201, 64, 1024, gen, card)
-    return time_nearest(4, N_SERVE, 64, 1024, gen, card)
+    time_nearest(4, N_SERVE, 64, 1024, gen, card)
 
 
-def time_training_kernels(dev, card: str):
+def time_stage_kernels(dev, card: str) -> None:
+    """Phase 9's kernel timings: vq_nearest at the shapes the composite and
+    location stages add."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    time_nearest(9, ECHOED_N, SPEECH_D, SPEECH_K, gen, card)
+    time_nearest(9, LOCATION_N, 64, 1024, gen, card)
+
+
+def time_training_kernels(dev, card: str) -> None:
     """Phase 7's kernel timings: every kernel at the speech and RIR stages'
     training shapes, the accumulation also on skewed indices."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(7)
     time_nearest(7, RIR_N, 64, 1024, gen, card)
-    near = time_nearest(7, SPEECH_N, SPEECH_D, SPEECH_K, gen, card)
-    accum = time_accum(7, SPEECH_N, SPEECH_D, SPEECH_K, "uniform", gen, card, extras=True)
+    time_nearest(7, SPEECH_N, SPEECH_D, SPEECH_K, gen, card)
+    time_accum(7, SPEECH_N, SPEECH_D, SPEECH_K, "uniform", gen, card, extras=True)
     for kind in ("32 codes", "one code"):
         time_accum(7, SPEECH_N, SPEECH_D, SPEECH_K, kind, gen, card)
     time_accum(7, RIR_N, 64, 1024, "uniform", gen, card)
-    return near, accum
 
 
 def check_nearest(vq, nearest_cuda, dev) -> float:
@@ -399,7 +479,7 @@ def check_nearest(vq, nearest_cuda, dev) -> float:
     report = []
     with full_fp32():
         for n, d, k in [(N_SERVE, 64, 1024), (8 * 201, 64, 1024), (SPEECH_N, SPEECH_D, SPEECH_K),
-                        (RIR_N, 64, 1024), (100, 4, 16), (513, 128, 100), (8 * 201, 64, 100), (8 * 201, 64, 16),
+                        (RIR_N, 64, 1024), (ECHOED_N, SPEECH_D, SPEECH_K), (LOCATION_N, 64, 1024), (100, 4, 16), (513, 128, 100), (8 * 201, 64, 100), (8 * 201, 64, 16),
                         (1000, 129, 300), (300, 6, 1024), (2000, 256, 520)]:
             x = torch.randn(n, d, generator=gen, device=dev)
             cb = torch.randn(k, d, generator=gen, device=dev)
@@ -581,7 +661,7 @@ def train_step_card_vs_cpu(task, dev, counters, label: str, seed: int):
     from acoustic_locating_vq_vae_torch.train import Trainer
 
     g = torch.Generator().manual_seed(seed)
-    data = make_batch(2 * CHECK_B, g, "cpu")
+    data = make_batch(2 * CHECK_B, g, "cpu")  # the stage's batch of 32 takes all 8 rows
     seed_batch = make_batch(8, g, "cpu")  # >= K = 1024 latent rows in both stages
     trainers = {"cpu": Trainer(task, device="cpu", seed=seed + 1, verbose=False),
                 "card": Trainer(task, device=dev, seed=seed + 1, verbose=False)}
@@ -607,7 +687,8 @@ def train_step_card_vs_cpu(task, dev, counters, label: str, seed: int):
             torch.cuda.synchronize()
             for c in counters:
                 c.launches = 0
-        metrics = tr.step(batch)
+        with count_by_shape() if name == "card" else contextlib.nullcontext():
+            metrics = tr.step(batch)
         if name == "card":
             torch.cuda.synchronize()
             launches = {c.__name__: c.launches for c in counters}
@@ -646,7 +727,8 @@ def train_step_card_vs_cpu(task, dev, counters, label: str, seed: int):
     worst = {}
     for step, grads in steps.items():
         worst[step] = max((float((grads[k].double() - ref).abs().max() / ref.abs().max()), k) for k, ref in g64.items())
-    phase(6, f"{label} train step at full width, B={CHECK_B}, seed {seed}: launches {launches}; codes differ on "
+    phase(6, f"{label} train step at full width, B={cpu_batch.speech_spec.shape[0]}, seed {seed}: launches "
+             f"{launches}; codes differ on "
              f"{mism} tie rows (gap {gap}); loss card {m_card['loss']} vs CPU {m_cpu['loss']} vs float64 "
              f"{loss64.item()}; metrics within rtol {LOSS_RTOL}; {len(b_cpu)} EMA buffers agree; gradients "
              f"bitwise equal over two card steps (with cuDNN's default algorithms "
@@ -655,18 +737,27 @@ def train_step_card_vs_cpu(task, dev, counters, label: str, seed: int):
     return launches, worst, default_same
 
 
-def step_times_ms(trainer, data, steps: int = 10, warmup: int = 3):
+def one_step(trainer, data, cache=None):
+    """Sample a batch (with its cache rows where ``cache`` is given) and take
+    one train step on it."""
+    if cache is None:
+        return trainer.step(trainer.sample(data))
+    batch, rows = trainer.sample_cached(data, cache)
+    return trainer.step(batch, cache=rows)
+
+
+def step_times_ms(trainer, data, cache=None, steps: int = 10, warmup: int = 3):
     """Median host-clock time of one train step (sample + loss + backward +
     Adam), synchronised before and after, after warm-up."""
     import torch
 
     for _ in range(warmup):
-        trainer.step(trainer.sample(data))
+        one_step(trainer, data, cache)
     times = []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.step(trainer.sample(data))
+        one_step(trainer, data, cache)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), times
@@ -692,6 +783,271 @@ def yardstick_step_ms(trainer, data, tf32: bool, deterministic: bool, steps: int
         if i >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# phase 8's stages: (label, stage, cached, vq_nearest launches per train step). The codebooks
+# are frozen in all four stages, so the accumulation kernel must not run in any of them.
+STAGES = (("echoed", "echoed", False, 2), ("echoed cached", "echoed", True, 0), ("finetune", "finetune", False, 2),
+          ("location", "location", False, 1), ("location cached", "location", True, 0),
+          ("joint", "location_joint", False, 1))
+STAGE_SEED = 80
+# the cached echoed or location step against the uncached one on the same weights and batch: they differ by
+# the last bit of the straight-through value x + (q - x)
+CACHE_RTOL = 1e-5
+
+
+def make_stage_task(stage: str, **kw):
+    """The stage's task (``make_task``) at its defaults (location: one-hot encodings, theta/pi; joint: the
+    deployed sincos head, here with the range output and a tail term), with ``kw`` as fields."""
+    from acoustic_locating_vq_vae_torch.train import make_task
+
+    if stage == "location_joint":
+        kw.update(predict_radius=True, tail_weight=0.5)
+    return make_task(stage, **kw)
+
+
+def stage_batch(b: int, g, device):
+    """make_batch with angles over (-pi, pi) and radii over (0.5, 1.5) m."""
+    import torch
+
+    data = make_batch(b, g, device)
+    theta = (torch.rand(b, generator=g, device=device) * 2 - 1) * math.pi
+    return data._replace(theta=theta, radius=torch.rand(b, generator=g, device=device) + 0.5)
+
+
+def composite_weights(task, g):
+    """A composite's state dict from ``g``, each branch's codebook made of pre-VQ latent rows of a separate
+    seeded batch: the weights the echoed and finetune stages start from and the location stages read."""
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+
+    model = task.build_model(g)
+    xs, xr = task.model_inputs(stage_batch(8, g, "cpu"))  # >= K = 1024 latent rows in both branches
+    with full_fp32():
+        latent_codebook_(model.speech_model, xs, g)
+        latent_codebook_(model.rir_model, xr, g)
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def start_stage(tr, composite, g) -> None:
+    """Load the stage's starting weights into a trainer: the composite for the echoed and finetune stages;
+    for the joint stage its RIR branch (seed_params) with a codebook of its own flatten's latent rows."""
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+
+    name = tr.task.name
+    if name in ("echoed", "finetune"):
+        tr.model.load_state_dict(composite)
+    elif name == "location_joint":
+        tr.model.load_state_dict(tr.task.seed_params(tr.model.state_dict(), composite))
+        spec = stage_batch(8, g, "cpu").echoed_spec.to(tr.device)
+        with full_fp32():
+            latent_codebook_(tr.model.rir_model, tr.task.model_inputs(spec)[0], g)
+
+
+def stage_branches(tr, batch) -> dict:
+    """The frozen or trained VQ-VAE branches a stage's step runs, with their inputs."""
+    from acoustic_locating_vq_vae_torch.dsp import znorm
+
+    task, model = tr.task, tr.model
+    if task.name == "location":
+        return {"rir": (tr.frozen_rir, znorm(batch.echoed_spec, dim=1).transpose(1, 2))}
+    if task.name == "location_joint":
+        return {"rir": (model.rir_model, task.model_inputs(batch.echoed_spec)[0])}
+    xs, xr = task.model_inputs(batch)
+    return {"speech": (model.speech_model, xs), "rir": (model.rir_model, xr)}
+
+
+def frozen_weights(tr) -> dict:
+    """Copies of the weights the task's cache assumes constant (the echoed stage's branches)."""
+    prefixes = tuple(f"{name}." for name in tr.task.cached_frozen_subtrees)
+    return {k: v.detach().clone() for k, v in tr.model.state_dict().items() if k.startswith(prefixes)}
+
+
+def stage_control_grads(tr, batch, rows):
+    """Gradients of the stage trainer's next step (loss and backward, no update) with TF32 allowed, on a copy
+    of its model, from its jitter state and on the same batch and cache rows."""
+    import torch
+
+    ctl = copy.copy(tr)
+    ctl.model = copy.deepcopy(tr.model)
+    ctl.jitter_generator = torch.Generator()
+    ctl.jitter_generator.set_state(tr.jitter_generator.get_state())
+    with card_precision(True, True):
+        ctl._loss(batch, True, rows)[0].backward()
+    return {k: p.grad.detach().cpu() for k, p in ctl.model.named_parameters() if p.grad is not None}
+
+
+def stage_step_card_vs_cpu(label: str, task, cached: bool, composite, dev, counters, seed: int):
+    """Phase 8: one train step of a composite or location stage at full width, B = task.batch_size, on the
+    card and on the CPU from the same weights, batch, cache and jitter decisions, and the same step in
+    float64 on the CPU as the gradient reference. Checks codes (tie rule; the CPU's cached codes exactly),
+    loss and metrics (LOSS_RTOL), every gradient (GRAD_RTOL of its max from float64, LOCATION_GRAD_RTOL on
+    the location stage) and that the same parameters have gradients; on a cached stage the cached loss
+    against the uncached one on the card (CACHE_RTOL); on an echoed stage the branches bitwise unchanged
+    over three steps. Before the card's step, a control step with TF32 allowed runs on a copy of its model;
+    its distance from float64 is printed. Returns the card step's launches, which the caller checks, and
+    (worst gradient distance, its parameter) of the card's step and of the TF32 control."""
+    import gc
+
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.train import Trainer
+    from acoustic_locating_vq_vae_torch.utils import deterministic_convs
+
+    g = torch.Generator().manual_seed(seed)
+    data = stage_batch(2 * task.batch_size, g, "cpu")
+    location = task.name == "location"
+    cpu, card = (Trainer(task, device=d, seed=seed + 1, verbose=False, composite_params=composite if location else None)
+                 for d in ("cpu", dev))
+    start_stage(cpu, composite, g)
+    card.model.load_state_dict(cpu.model.state_dict())
+    ref = copy.copy(cpu)  # the float64 reference of the CPU's step, from the same state
+    ref.model = copy.deepcopy(cpu.model).double()
+    ref.frozen_rir = copy.deepcopy(cpu.frozen_rir).double() if location else None
+    ref.jitter_generator = torch.Generator()
+    ref.jitter_generator.set_state(cpu.jitter_generator.get_state())
+    before = frozen_weights(card) if task.name == "echoed" else {}
+    runs = {}
+    for name, tr in (("cpu", cpu), ("card", card)):
+        resident = tr.to_device(data)
+        cache = tr.build_cache(resident) if cached else None
+        batch, rows = tr.sample_cached(resident, cache) if cached else (tr.sample(resident), None)
+        codes = {}
+        with torch.no_grad(), full_fp32():
+            for b, (branch, x) in stage_branches(tr, batch).items():
+                z = branch.pre_vq_latent(x)
+                flat = (z if branch.compat_vq_flatten else z.transpose(1, 2)).reshape(-1, branch.embedding_dim)
+                codes[b] = (branch.get_latent_codes(x).flatten().cpu(), flat.cpu(),
+                            branch._vq._embedding.weight.detach().cpu().clone())
+        cache_gap = None
+        if name == "card" and cached:
+            state = tr.jitter_generator.get_state()
+            with torch.no_grad(), full_fp32(), deterministic_convs():
+                losses = []
+                for c in (None, rows):
+                    losses.append(float(tr._loss(batch, True, c)[0]))
+                    tr.jitter_generator.set_state(state)
+            cache_gap = abs(losses[1] - losses[0]) / abs(losses[0])
+            if not cache_gap <= CACHE_RTOL:
+                raise AssertionError(f"{label}: cached loss {losses[1]} vs uncached {losses[0]} on the card, "
+                                     f"rtol {CACHE_RTOL}")
+        if name == "card":
+            tf32 = stage_control_grads(tr, batch, rows)
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+        with count_by_shape() if name == "card" else contextlib.nullcontext():
+            metrics = tr.step(batch, cache=rows)
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+        else:
+            cpu_batch, cpu_rows = batch, rows
+        grads = {k: p.grad.detach().cpu() for k, p in tr.model.named_parameters() if p.grad is not None}
+        rows_cpu = {k: v.cpu() for k, v in rows.items()} if cached else {}
+        runs[name] = (codes, {k: float(v) for k, v in metrics.items()}, grads, rows_cpu, cache_gap)
+    (codes_cpu, m_cpu, g_cpu, rows_cpu, _), (codes_card, m_card, g_card, rows_card, cache_gap) = runs["cpu"], runs["card"]
+    report = []
+    for b, (c_cpu, flat, cb) in codes_cpu.items():
+        mism, gap = check_codes(flat, cb, codes_card[b][0], c_cpu, f"{label} {b} codes card vs CPU")
+        report.append(f"{b} {mism} tie rows (gap {gap})")
+        key = f"{b}_codes"
+        if key in rows_cpu:
+            if not torch.equal(rows_cpu[key].flatten().long(), c_cpu.long()):
+                raise AssertionError(f"{label}: the CPU's cached {b} codes differ from its uncached ones")
+            mism, _ = check_codes(flat, cb, rows_card[key].flatten(), c_cpu, f"{label} {b} cached codes card vs CPU")
+            report.append(f"cached {b} {mism} tie rows")
+    for k, v in m_cpu.items():
+        if not math.isfinite(m_card[k]) or abs(m_card[k] - v) > LOSS_RTOL * abs(v):
+            raise AssertionError(f"{label}: {k} card {m_card[k]} vs CPU {v}, rtol {LOSS_RTOL}")
+
+    batch64 = cpu_batch.map(lambda a: a.double() if a.is_floating_point() else a)
+    loss64, _ = ref._loss(batch64, True, cpu_rows)
+    loss64.backward()
+    g64 = {k: p.grad.detach() for k, p in ref.model.named_parameters() if p.grad is not None}
+    if not set(g64) == set(g_card) == set(g_cpu):
+        raise AssertionError(f"{label}: parameters with a gradient differ: card {sorted(set(g_card) ^ set(g64))}, "
+                             f"CPU {sorted(set(g_cpu) ^ set(g64))} from float64")
+    def distance(grads):
+        return max((float((grads[k].double() - r).abs().max() / r.abs().max()), k) for k, r in g64.items())
+
+    worst, worst_cpu, worst_tf32 = distance(g_card), distance(g_cpu)[0], distance(tf32)
+    limit = LOCATION_GRAD_RTOL if location else GRAD_RTOL
+    if worst[0] > limit:
+        raise AssertionError(f"{label}: the gradient of {worst[1]} is {worst[0]} of its max from float64, "
+                             f"limit {limit}")
+    steps = 1
+    if task.name == "echoed":  # the condition the cache rests on: Adam leaves the frozen branches as they were
+        resident = card.to_device(data)
+        cache = card.build_cache(resident) if cached else None
+        for _ in range(2):
+            one_step(card, resident, cache)
+            steps += 1
+        changed = [k for k, v in frozen_weights(card).items() if not torch.equal(v, before[k])]
+        if changed:
+            raise AssertionError(f"{label}: frozen branch weights changed over {steps} card steps: {changed[:5]}")
+    phase(8, f"{label} train step at full width, B={task.batch_size}, seed {seed}: launches {launches}; codes "
+             f"card vs CPU: {'; '.join(report)}; loss card {m_card['loss']} vs CPU {m_cpu['loss']} vs float64 "
+             f"{loss64.item()}; metrics within rtol {LOSS_RTOL}; {len(g64)} trained parameters, worst distance "
+             f"from float64 over the gradient's max (limit {limit}): card {worst[0]:.3g} ({worst[1]}), CPU "
+             f"{worst_cpu:.3g}, TF32 control on the card {worst_tf32[0]:.3g} ({worst_tf32[1]})"
+             + (f"; cached vs uncached loss on the card rtol {cache_gap:.3g}" if cached else "")
+             + (f"; branches bitwise unchanged over {steps} card steps" if task.name == "echoed" else ""))
+    del cpu, card, ref, runs, tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, worst, worst_tf32
+
+
+def time_stage(label: str, task, cached: bool, composite, dev, counters, card: str) -> dict:
+    """Phase 9: the stage's train step at its own batch size on the card (median of step_times_ms), the
+    cache build where cached (ms per sample, the second of two builds), peak memory, the vq_nearest
+    launches of the timed run and a torch.profiler breakdown of the step."""
+    import gc
+
+    import torch
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    location = task.name == "location"
+    tr = Trainer(task, device=dev, seed=9, verbose=False, composite_params=composite if location else None)
+    start_stage(tr, composite, torch.Generator().manual_seed(9))
+    data = stage_batch(2 * task.batch_size, g, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache, build = None, ""
+    if cached:
+        tr.build_cache(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = tr.build_cache(data)
+        torch.cuda.synchronize()
+        n = int(data.echoed_spec.shape[0])
+        build_ms = (time.perf_counter() - t0) * 1e3
+        build = f"; cache build {build_ms / n:.4f} ms per sample ({n} samples in chunks of {min(n, max(task.batch_size, 8))})"
+    for c in counters:
+        c.launches = 0
+    with count_by_shape():
+        med, times = step_times_ms(tr, data, cache=cache)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    b = task.batch_size
+    phase(9, f"{label} train step at B={b}, full width, TF32 off: median {med:.4f} ms over {len(times)} steps "
+             f"(min {min(times):.4f}, max {max(times):.4f}), {b * 500 / med * 1e3:.1f} frames/s{build}; peak memory "
+             f"{peak_gb:.3f} GB; launches over the {len(times) + 3} steps {launches} ({card})")
+    wall_us, busy_us, top = device_breakdown(lambda d: one_step(tr, d, cache), [data] * 3, top=8)
+    if busy_us == 0:
+        phase(9, f"{label} step: the profiler recorded no device time")
+    else:
+        tops = "; ".join(f"{k[:70]} x{c} {t / 3 / 1e3:.3f} ms ({t / busy_us:.1%})" for k, c, t in top)
+        phase(9, f"{label} step profiled, per step: {wall_us / 3 / 1e3:.4f} ms host clock, card busy "
+                 f"{busy_us / 3 / 1e3:.4f} ms ({busy_us / wall_us:.1%}); kernels by device time: {tops}")
+    del tr, data, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": med, "launches": launches, "steps": len(times) + 3}
 
 
 def main() -> int:
@@ -737,6 +1093,7 @@ def main() -> int:
         check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
         time_serving_kernels(dev, card)
         time_training_kernels(dev, card)
+        time_stage_kernels(dev, card)
         return 0
 
     # ---- phase 2: kernel vs plain on the card
@@ -779,7 +1136,8 @@ def main() -> int:
         spec_gpu = spec.to(dev)
         torch.cuda.synchronize()
         nearest_indices_cuda.launches = 0
-        out_gpu = serve_gpu(spec_gpu)
+        with count_by_shape():
+            out_gpu = serve_gpu(spec_gpu)
         torch.cuda.synchronize()
         launches[name] = nearest_indices_cuda.launches
         if launches[name] < 1:
@@ -837,7 +1195,7 @@ def main() -> int:
                      f"card busy {busy_us / 5 / 1e3:.4f} ms ({busy_us / wall_us:.1%}); "
                      f"kernels by device time: {tops}")
 
-    near_serve = time_serving_kernels(dev, card)
+    time_serving_kernels(dev, card)
     del outs
     if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
         torch._C._cuda_clearCublasWorkspaces()  # the capture stream's, or it counts in phase 7's peak memory
@@ -879,10 +1237,12 @@ def main() -> int:
     g7 = torch.Generator(device=dev).manual_seed(7)
     data = make_batch(2 * TRAIN_B, g7, dev)
     step_ms = {}
-    for label, task in (("speech", SpeechVQVAETask()), ("rir", RirVQVAETask())):
+    for label, task in (("speech", SpeechVQVAETask()), ("rir", RirVQVAETask()),
+                        ("speech EMA", SpeechVQVAETask(vq_ema=True))):
         trainer = Trainer(task, device=dev, seed=8, verbose=False)
         torch.cuda.reset_peak_memory_stats()
-        med, times = step_times_ms(trainer, data)
+        with count_by_shape():
+            med, times = step_times_ms(trainer, data)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         step_ms[label] = med
         phase(7, f"{label} train step at B={TRAIN_B}, full width, TF32 off: median {med:.4f} ms over "
@@ -906,27 +1266,54 @@ def main() -> int:
         del trainer
         torch.cuda.empty_cache()
 
-    _, accum = time_training_kernels(dev, card)
+    time_training_kernels(dev, card)
     phase(7, f"launches per train step: speech {train_launches['speech']}, speech EMA {train_launches['speech EMA']}, "
              f"rir {train_launches['rir']}")
 
-    def accum_entry(name, source_line, label, counter):
-        return {"name": name, "route": "cuda",
-                "source": "src/acoustic_locating_vq_vae_torch/csrc/vq_codebook_accum.cu",
-                "replaces": f"src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:{source_line}",
-                "launches": train_launches[label][counter], "max_abs_err": accum_err, **accum[name]}
+    # ---- phase 8: the composite and location stages at full width, card vs CPU
+    composite = composite_weights(make_stage_task("echoed"), torch.Generator().manual_seed(STAGE_SEED))
+    stage_worst = {}
+    for label, stage, cached, nearest in STAGES:
+        task = make_stage_task(stage, batch_size=CHECK_B)
+        got, worst, worst_tf32 = stage_step_card_vs_cpu(label, task, cached, composite, dev, counters, STAGE_SEED)
+        want = {"nearest_indices_cuda": nearest, "codebook_grad_cuda": 0, "codebook_stats_cuda": 0}
+        if got != want:
+            raise AssertionError(f"{label} train step launched {got}, want {want}")
+        stage_worst[label] = worst, worst_tf32
+    phase(8, f"worst gradient distance from float64 over each gradient's max, card step | TF32 control (limit "
+             f"{LOCATION_GRAD_RTOL} for the location stage, {GRAD_RTOL} for the others): "
+             + ", ".join(f"{label} {w[0]:.3g} ({w[1]}) | {t[0]:.3g}" for label, (w, t) in stage_worst.items()))
 
-    print(json.dumps({"kernels": [{
-        "name": "vq_nearest",
-        "route": "cuda",
-        "source": "src/acoustic_locating_vq_vae_torch/csrc/vq_nearest.cu",
-        "replaces": "src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:49",
-        "launches": sum(launches.values()) + sum(t["nearest_indices_cuda"] for t in train_launches.values()),
-        "max_abs_err": max_err,
-        **near_serve,
-    }, accum_entry("vq_codebook_grad", 68, "speech", "codebook_grad_cuda"),
-        accum_entry("vq_codebook_stats", 150, "speech EMA", "codebook_stats_cuda"),
-    ]}), flush=True)
+    # ---- phase 9: the stages' timings on the card
+    stage_runs = {}
+    for label, stage, cached, nearest in STAGES:
+        run = time_stage(label, make_stage_task(stage), cached, composite, dev, counters, card)
+        want = {"nearest_indices_cuda": nearest * run["steps"], "codebook_grad_cuda": 0, "codebook_stats_cuda": 0}
+        if run["launches"] != want:
+            raise AssertionError(f"{label} timed run launched {run['launches']}, want {want}")
+        stage_runs[label] = run
+    time_stage_kernels(dev, card)
+    phase(9, "step time, ms on the card: " + ", ".join(f"{label} {run['ms']:.4f}" for label, run in stage_runs.items())
+             + f"; echoed frames/s uncached {64 * 500 / stage_runs['echoed']['ms'] * 1e3:.1f}, cached "
+             f"{64 * 500 / stage_runs['echoed cached']['ms'] * 1e3:.1f} ({card})")
+
+    # one entry for each kernel and shape that was timed and that the main path ran, with the launches it
+    # made at that shape; every kernel of the path has an entry
+    names = {"vq_nearest": ("vq_nearest.cu", 49, max_err), "vq_codebook_grad": ("vq_codebook_accum.cu", 68, accum_err),
+             "vq_codebook_stats": ("vq_codebook_accum.cu", 150, accum_err)}
+    entries = [{"name": name, "route": "cuda", "source": f"src/acoustic_locating_vq_vae_torch/csrc/{names[name][0]}",
+                "replaces": f"src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:{names[name][1]}",
+                "shape": f"N={n}, D={d}, K={k}", "launches": SHAPE_LAUNCHES[(name, n, d, k)],
+                "max_abs_err": names[name][2], **timing}
+               for (name, n, d, k), timing in sorted(SHAPE_TIMINGS.items(), key=lambda kv: (list(names).index(kv[0][0]),
+                                                                                           kv[0][1:]))
+               if SHAPE_LAUNCHES[(name, n, d, k)] > 0]
+    missing = set(names) - {e["name"] for e in entries}
+    if missing:
+        raise AssertionError(f"no timed shape of {sorted(missing)} was launched by the main path: {dict(SHAPE_LAUNCHES)}")
+    phase(9, "launches of the main path's checked and timed runs by kernel and shape: "
+             + ", ".join(f"{name} ({n}, {d}, {k}) {c}" for (name, n, d, k), c in sorted(SHAPE_LAUNCHES.items())))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -8,10 +8,12 @@ first use).
 
 It holds the localizers' serving path (the joint and the frozen localizer,
 from an echoed power spectrogram to angle, radius and coordinates) and the
-training path of the two single-VQ-VAE stages (speech and RIR: resident
-dataset, sampled batch, loss, backward, Adam). The nearest-codebook
-assignment, the codebook gradient and the EMA codebook statistics are CUDA
-kernels.
+training path of every stage (resident dataset, sampled batch, loss,
+backward, Adam): the speech and RIR VQ-VAEs, the echoed-speech composite
+(frozen, or with its encoders fine-tuned) with its frozen-latent cache, and
+the frozen and the joint location stages, chained in memory by state dicts.
+The nearest-codebook assignment, the codebook gradient and the EMA codebook
+statistics are CUDA kernels.
 
 Subpackages
 -----------
@@ -19,10 +21,12 @@ data    DatasetConfig, SampleBatch, SpecsDataset, batch sampling
 dsp     znorm, source_coordinates
 ops     Conv1d, ConvTranspose1d, Dense, residual stacks, jitter, vector
         quantizer, the CUDA kernels' wrappers and build
-models  ConvolutionalVQVAE (encoder, quantizer, decoder), LocationModule,
-        JointLocationModel
-train   Task, SpeechVQVAETask, RirVQVAETask, Trainer, TrainHistory;
-        LocationTask, JointLocationTask (inference part)
+models  ConvolutionalVQVAE (encoder, quantizer, decoder),
+        EchoedSpeechReconModel, LocationModule, JointLocationModel
+train   Task and the six stage tasks (SpeechVQVAETask, RirVQVAETask,
+        EchoedSpeechTask, EncoderFinetuneTask, LocationTask,
+        JointLocationTask), make_task, graft_pretrained,
+        check_flatten_handoff, Trainer, TrainHistory
 eval    weights from the JAX package's parameter trees, the serving closure
 utils   device rules (full_fp32, resolve_device)
 """

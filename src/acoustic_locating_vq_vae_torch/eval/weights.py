@@ -27,7 +27,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "composite_params_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -129,4 +129,23 @@ def params_from_jax(tree: Any, num_residual_layers: int = 2, vq_stats: Any = Non
         _encoder(tree, "", num_residual_layers, out)
     else:
         raise ValueError(f"unrecognised parameter tree with top-level names {sorted(tree)}")
+    return out
+
+
+def composite_params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
+    """The port's state dict for the flax ``params`` tree of an
+    ``EchoedSpeechReconModel`` (the JAX ``echoed_state_dict``,
+    torch_export.py:108-122): both branches under ``rir_model.`` and
+    ``speech_model.``, each with the depth of its stage (2 and 3), and the
+    composite decoder under ``_decoder.`` (2). A branch carries its decoder
+    where the tree has one, as a composite grafted from the speech and RIR
+    stages does; a freshly initialised composite has none, flax making no
+    parameters for a submodule it never called.
+
+    ``params_from_jax`` reads the same tree as the frozen localizer's RIR
+    branch alone."""
+    out: Dict[str, torch.Tensor] = {}
+    _vqvae(tree["rir_model"], "rir_model", 2, out)
+    _vqvae(tree["speech_model"], "speech_model", 3, out)
+    _decoder(tree["_decoder"], "_decoder", 2, out)
     return out

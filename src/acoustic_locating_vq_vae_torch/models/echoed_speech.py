@@ -1,0 +1,137 @@
+"""Echoed-speech composite model (reference: vq_vae/echoed_speech_model.py:9-56).
+
+Counterpart of ``acoustic_locating_vq_vae_tpu/models/echoed_speech.py:34-197``
+without the sequence sharding (``sequence_axis``). It holds the two
+pretrained VQ-VAEs (speech and RIR), concatenates their quantized latents
+(the RIR latent right-padded along time to the speech latent's length) and
+decodes the echoed spectrogram with a fresh decoder.
+
+Freeze semantics, as in the reference:
+
+* both codebooks run frozen (``get_latent_representation``,
+  echoed_speech_model.py:17-18), so their q-latent losses carry no gradient;
+* the concatenated latent is detached unless ``train_encoder``
+  (:51-54): the finetune stage sets it, so the encoders learn through the
+  straight-through estimator while the codebooks stay frozen.
+
+The branches are full ``ConvolutionalVQVAE``s with their decoders, which the
+composite never runs: the state dict of a composite grafted from the speech
+and RIR stages (``train/tasks.py:graft_pretrained``) then has the keys of the
+reference's module, which the JAX ``eval/torch_export.py:echoed_state_dict``
+also emits (``rir_model.*``, ``speech_model.*``, ``_decoder.*``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.vq import perplexity_from_indices
+from .conv_vqvae import ConvolutionalVQVAE, DeconvolutionalDecoder
+
+__all__ = ["EchoedSpeechReconModel"]
+
+
+class EchoedSpeechReconModel(nn.Module):
+    """The speech and RIR branches, frozen, and the composite decoder over
+    their concatenated latents: ``D_s + D_r`` channels in, ``out_channels``
+    out (the spectrogram's frequency bins)."""
+
+    def __init__(
+        self,
+        rir_model: ConvolutionalVQVAE,
+        speech_model: ConvolutionalVQVAE,
+        out_channels: int,
+        num_hiddens: int,
+        num_residual_layers: int,
+        num_residual_hiddens: int,
+        use_jitter: bool = True,
+        jitter_probability: float = 0.25,  # echoed_speech_model.py:30
+        tied: bool = True,
+        compat_init: bool = True,
+        compat_inplace_relu: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.rir_model = rir_model
+        self.speech_model = speech_model
+        self._decoder = DeconvolutionalDecoder(
+            speech_model.embedding_dim + rir_model.embedding_dim, out_channels, num_hiddens,
+            num_residual_layers, num_residual_hiddens, use_jitter=use_jitter,
+            jitter_probability=jitter_probability, tied=tied, compat_init=compat_init,
+            compat_inplace_relu=compat_inplace_relu, generator=generator,
+        )
+
+    def forward(
+        self,
+        spec_in: torch.Tensor,
+        spec_in_rir: torch.Tensor,
+        train: bool = True,
+        train_encoder: bool = False,
+        return_vq_losses: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """``spec_in`` (B, F, T), ``spec_in_rir`` its transpose (B, T, F).
+        Returns (recon (B, F, T), speech_perplexity, rir_perplexity) and, with
+        ``return_vq_losses``, a dict of the two branch VQ losses, whose
+        commitment terms carry the encoders' gradient. ``train`` gates the
+        decoder's jitter, whose decisions come from ``generator``."""
+        # A gradient leaves the branches only through the latent
+        # (train_encoder) or the branch VQ losses; otherwise they run without
+        # autograd state, as their stop-gradient'd JAX counterparts cost no
+        # backward. The values are the same either way.
+        with torch.set_grad_enabled(torch.is_grad_enabled() and (train_encoder or return_vq_losses)):
+            rir_loss, rir_q, rir_perp, _ = self.rir_model.get_latent_representation(spec_in_rir, need_encodings=False)
+            speech_loss, speech_q, speech_perp, _ = self.speech_model.get_latent_representation(
+                spec_in, need_encodings=False
+            )
+        quantized = self._pad_concat(speech_q, rir_q)
+        if not train_encoder:
+            quantized = quantized.detach()  # :51-54
+        out = (self._decoder(quantized, train=train, generator=generator), speech_perp, rir_perp)
+        if return_vq_losses:
+            return out + ({"speech": speech_loss, "rir": rir_loss},)
+        return out
+
+    @staticmethod
+    def _pad_concat(speech_q: torch.Tensor, rir_q: torch.Tensor) -> torch.Tensor:
+        """Right-pad the shorter latent along time and concatenate on
+        channels: (B, D_s + D_r, L). The reference pads the RIR side only
+        (echoed_speech_model.py:41-49); the JAX package pads either."""
+        diff = speech_q.shape[2] - rir_q.shape[2]
+        if diff > 0:
+            rir_q = F.pad(rir_q, (0, diff))
+        elif diff < 0:
+            speech_q = F.pad(speech_q, (0, -diff))
+        return torch.cat([speech_q, rir_q], dim=1)
+
+    @torch.no_grad()
+    def encode_codes(self, spec_in: torch.Tensor, spec_in_rir: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The frozen branches' code ids, ``(B, rows)`` int32 each: the
+        frozen-latent cache's entries, constant per sample while the encoders
+        and codebooks are frozen."""
+        return {
+            "speech_codes": self.speech_model.get_latent_codes(spec_in),
+            "rir_codes": self.rir_model.get_latent_codes(spec_in_rir),
+        }
+
+    def decode_from_codes(
+        self, speech_codes: torch.Tensor, rir_codes: torch.Tensor, train: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """The decoder alone from cached code ids: ``forward`` with
+        ``train_encoder=False`` (the same latents by codebook lookup, up to
+        the last bit of the straight-through value ``x + (q - x)`` the
+        uncached path returns; the same perplexities, from the code
+        histogram; the same jitter decisions from ``generator``)."""
+        with torch.no_grad():
+            quantized = self._pad_concat(
+                self.speech_model.codes_to_latent(speech_codes), self.rir_model.codes_to_latent(rir_codes)
+            )
+        recon = self._decoder(quantized, train=train, generator=generator)
+        speech_perp = perplexity_from_indices(speech_codes, self.speech_model.num_embeddings)
+        rir_perp = perplexity_from_indices(rir_codes, self.rir_model.num_embeddings)
+        return recon, speech_perp, rir_perp

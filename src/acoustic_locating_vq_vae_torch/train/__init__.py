@@ -1,9 +1,22 @@
-"""Stage task specs and the single-VQ-VAE training loop."""
+"""Stage task specs, the stage handoff and the training loop."""
 
 from .loop import Trainer, TrainHistory
-from .tasks import JointLocationTask, LocationTask, RirVQVAETask, SpeechVQVAETask, Task
+from .tasks import (
+    EchoedSpeechTask,
+    EncoderFinetuneTask,
+    JointLocationTask,
+    LocationTask,
+    RirVQVAETask,
+    SpeechVQVAETask,
+    Task,
+    check_flatten_handoff,
+    graft_pretrained,
+    make_task,
+    resolved_vq_flatten,
+)
 
 __all__ = [
-    "JointLocationTask", "LocationTask", "RirVQVAETask", "SpeechVQVAETask", "Task",
-    "Trainer", "TrainHistory",
+    "EchoedSpeechTask", "EncoderFinetuneTask", "JointLocationTask", "LocationTask", "RirVQVAETask",
+    "SpeechVQVAETask", "Task", "Trainer", "TrainHistory", "check_flatten_handoff", "graft_pretrained",
+    "make_task", "resolved_vq_flatten",
 ]

@@ -5,30 +5,46 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/train/tasks.py``:
 * the ``Task`` base (:50-100) and the two single-VQ-VAE training stages,
   ``SpeechVQVAETask`` (:127-189, train_speech.py) and ``RirVQVAETask``
   (:192-257, train_rir.py), with their losses;
-* ``LocationTask`` (the frozen localizer, :418-536) and ``JointLocationTask``
-  (:621-761), inference part: model builders, input wiring and output
-  decoding at the JAX tasks' defaults. Their inputs are tensors (the echoed
-  power spectrogram ``(B, F, T)``) rather than a sample batch.
+* the two composite stages over the echoed-speech model (:260-414),
+  ``EchoedSpeechTask`` (train_echoed_speech.py) and ``EncoderFinetuneTask``
+  (encoder_training_echoed_model.py), with the frozen-latent cache
+  (``build_cache`` / ``loss_cached``);
+* the two location stages, ``LocationTask`` (the frozen localizer,
+  train_location.py, :417-539) and ``JointLocationTask`` (:620-761), with
+  their losses, the location cache and the serving path's input wiring and
+  output decoding;
+* the stage handoff (``graft_pretrained``, :542-576), the VQ-flatten guard
+  (``resolved_vq_flatten``, ``check_flatten_handoff``, :579-617) and
+  ``make_task`` (:764-775).
 
-The composite stages, the location losses and the caches come in later
-slices; bf16 ``compute_dtype`` and sequence sharding too.
+The port's tasks take a model and a batch (weights live in the modules, not
+in a parameter tree), and the stage handoff works on state dicts. bf16
+``compute_dtype`` and sequence sharding are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..data.config import DatasetConfig
 from ..data.synth import SampleBatch
 from ..dsp.specs import znorm
 from ..models.conv_vqvae import ConvolutionalVQVAE
+from ..models.echoed_speech import EchoedSpeechReconModel
 from ..models.location import JointLocationModel, LocationModule
 
-__all__ = ["Task", "SpeechVQVAETask", "RirVQVAETask", "LocationTask", "JointLocationTask", "rir_model"]
+__all__ = [
+    "Task", "SpeechVQVAETask", "RirVQVAETask", "EchoedSpeechTask", "EncoderFinetuneTask", "LocationTask",
+    "JointLocationTask", "rir_model", "speech_model", "graft_pretrained", "resolved_vq_flatten",
+    "check_flatten_handoff", "make_task",
+]
+
+StateDict = Mapping[str, torch.Tensor]
 
 
 def _scale(v: int, width_scale: float, floor: int = 4) -> int:
@@ -61,6 +77,18 @@ class Task:
         decisions come from ``generator``."""
         raise NotImplementedError
 
+    @property
+    def resident_fields(self) -> Tuple[str, ...]:
+        """SampleBatch fields this task's loss reads; the trainer refuses a
+        resident dataset pruned of one of them."""
+        return SampleBatch._fields
+
+    @property
+    def supports_cache(self) -> bool:
+        """Whether the task has a frozen path the trainer may cache
+        (``build_cache`` with ``loss_cached`` or ``feats_from_codes``)."""
+        return False
+
 
 def _apply_vqvae(model: ConvolutionalVQVAE, x: torch.Tensor, train: bool, ema: bool, generator):
     """The JAX ``_apply_vqvae`` (tasks.py:108-120): an EMA codebook updates
@@ -92,12 +120,11 @@ class SpeechVQVAETask(Task):
     vq_ema: bool = False  # EMA codebook (option; gradient mode = reference parity)
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
-        s = lambda v: _scale(v, self.width_scale)
-        return ConvolutionalVQVAE(
-            in_channels=self.config.num_freq, num_hiddens=s(1024), embedding_dim=s(128),
-            num_residual_layers=3, num_residual_hiddens=s(1024), commitment_cost=0.25,
-            num_embeddings=s(1024), use_jitter=True, vq_ema=self.vq_ema, generator=generator,
-        )
+        return speech_model(self.config, self.width_scale, True, generator, vq_ema=self.vq_ema)
+
+    @property
+    def resident_fields(self) -> Tuple[str, ...]:
+        return ("speech_spec", "fs", "theta")
 
     def model_inputs(self, batch: SampleBatch) -> Tuple:
         # abs + z-norm over the freq dim (train_speech.py:63-64)
@@ -123,6 +150,10 @@ class RirVQVAETask(Task):
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
         return rir_model(self.config, self.width_scale, True, generator, decoder=True, vq_ema=self.vq_ema)
+
+    @property
+    def resident_fields(self) -> Tuple[str, ...]:
+        return ("rir_spec", "wiener_est", "fs", "theta")
 
     def model_inputs(self, batch: SampleBatch) -> Tuple:
         # z-norm over dim 1 THEN permute (B,F,T)->(B,T,F) (train_rir.py:44-45)
@@ -156,16 +187,151 @@ def rir_model(
     )
 
 
+def speech_model(
+    config: DatasetConfig,
+    width_scale: float,
+    compat_vq_flatten: bool,
+    generator: Optional[torch.Generator] = None,
+    vq_ema: bool = False,
+) -> ConvolutionalVQVAE:
+    """The speech VQ-VAE (tasks.py:150-170, :280-286): 201 -> H = 1024, 3 tied
+    residual layers of width 1024, D = 128, K = 1024, all scaled by
+    ``width_scale``; decoder jitter p = 0.25."""
+    s = lambda v: _scale(v, width_scale)
+    return ConvolutionalVQVAE(
+        in_channels=config.num_freq, num_hiddens=s(1024), embedding_dim=s(128),
+        num_residual_layers=3, num_residual_hiddens=s(1024), commitment_cost=0.25,
+        num_embeddings=s(1024), compat_vq_flatten=compat_vq_flatten, use_jitter=True,
+        vq_ema=vq_ema, generator=generator,
+    )
+
+
+def _echoed_model(
+    config: DatasetConfig, width_scale: float, compat_vq_flatten: bool,
+    generator: Optional[torch.Generator] = None,
+) -> EchoedSpeechReconModel:
+    """The composite (tasks.py:260-299): both branches in one flatten mode,
+    so the stage handoff keeps the codes' meaning, and the decoder of
+    train_echoed_speech.py:23-27 (H = 1024, 2 tied residual layers of width
+    1024, jitter on, the spectrogram's bins out)."""
+    s = lambda v: _scale(v, width_scale)
+    return EchoedSpeechReconModel(
+        rir_model=rir_model(config, width_scale, compat_vq_flatten, generator, decoder=True),
+        speech_model=speech_model(config, width_scale, compat_vq_flatten, generator),
+        out_channels=config.num_freq, num_hiddens=s(1024), num_residual_layers=2,
+        num_residual_hiddens=s(1024), use_jitter=True, generator=generator,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class EchoedSpeechTask(Task):
+    """Frozen-encoder composite: train the fresh decoder to reconstruct the
+    echoed spectrogram (train_echoed_speech.py); B = 64, lr 1e-3."""
+
+    name: str = "echoed"
+    learning_rate: float = 1e-3
+    batch_size: int = 64
+    num_updates: int = 15000
+    config: DatasetConfig = DatasetConfig()
+    width_scale: float = 1.0
+    train_encoder: bool = False
+    # Weight on the branch VQ losses (their commitment terms) added to the
+    # recon loss; 0.0 is the reference's recon-only loss. It anchors unfrozen
+    # encoders to the frozen codebooks (the JAX package's VALIDATION.md).
+    commitment_weight: float = 0.0
+    # None resolves to the reference's memory-order flatten (no sequence
+    # sharding in the port); one flag governs both branches
+    compat_vq_flatten: Optional[bool] = None
+
+    def build_model(self, generator: Optional[torch.Generator] = None) -> EchoedSpeechReconModel:
+        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator)
+
+    @property
+    def resident_fields(self) -> Tuple[str, ...]:
+        return ("echoed_spec", "fs", "theta")
+
+    def model_inputs(self, batch: SampleBatch) -> Tuple:
+        x = znorm(batch.echoed_spec, dim=1)  # train_echoed_speech.py:64
+        return x, x.transpose(1, 2)
+
+    def _recon_loss(self, out, x: torch.Tensor):
+        recon, speech_perp, rir_perp = out[:3]
+        recon_error = torch.mean((recon[..., : x.shape[-1]] - x) ** 2)
+        return recon_error, {"recon_error": recon_error, "speech_perplexity": speech_perp, "rir_perplexity": rir_perp}
+
+    def loss(self, model, batch, train, generator=None):
+        x, x_rir = self.model_inputs(batch)
+        out = model(
+            x, x_rir, train=train, train_encoder=self.train_encoder,
+            return_vq_losses=bool(self.commitment_weight), generator=generator,
+        )
+        # recon only (train_echoed_speech.py:89); the codebooks stay frozen
+        loss, metrics = self._recon_loss(out, x)
+        if self.commitment_weight:
+            loss = loss + self.commitment_weight * (out[3]["speech"] + out[3]["rir"])
+        return loss, metrics
+
+    # ----- frozen-latent cache: with both branches frozen, their codes are
+    # constant per sample, so the trainer computes them once per dataset and
+    # the step runs the decoder alone (train_echoed_speech.py re-runs both
+    # encoder stacks every step) -----
+
+    @property
+    def supports_cache(self) -> bool:
+        # not with train_encoder (the codes move every step) nor with an
+        # anchor (the branch VQ losses enter the loss)
+        return not self.train_encoder and not self.commitment_weight
+
+    @property
+    def cached_frozen_subtrees(self) -> Tuple[str, ...]:
+        """The submodules whose weights the cache assumes constant."""
+        return ("rir_model", "speech_model")
+
+    def build_cache(self, model: EchoedSpeechReconModel, batch: SampleBatch) -> Dict[str, torch.Tensor]:
+        """The frozen branches' code ids of every sample of ``batch``."""
+        return model.encode_codes(*self.model_inputs(batch))
+
+    def loss_cached(self, model, batch, cache, train, generator=None):
+        """:meth:`loss` from cached codes: the decoder alone, the same
+        latents, jitter decisions and metrics, up to the last bit of the
+        straight-through value."""
+        x, _ = self.model_inputs(batch)
+        out = model.decode_from_codes(cache["speech_codes"], cache["rir_codes"], train=train, generator=generator)
+        return self._recon_loss(out, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderFinetuneTask(EchoedSpeechTask):
+    """The encoders unfrozen at lr 1e-5, the codebooks still frozen
+    (encoder_training_echoed_model.py)."""
+
+    name: str = "finetune"
+    learning_rate: float = 1e-5
+    num_updates: int = 5000
+    train_encoder: bool = True
+
+
 def _transposed_input(echoed_spec: torch.Tensor) -> torch.Tensor:
     # z-norm over frequency THEN permute (B, F, T) -> (B, T, F) (train_location.py:63-66)
     return znorm(echoed_spec, dim=1).transpose(1, 2)
 
 
-@dataclasses.dataclass(frozen=True)
-class LocationTask:
-    """Angle regression from the frozen composite's RIR-branch features
-    (train_location.py)."""
+def _angle_target(theta: torch.Tensor, target_mode: str) -> torch.Tensor:
+    """(B, 1) theta/pi (train_location.py:77-78), or (B, 2) (sin, cos)."""
+    if target_mode == "sincos":
+        return torch.cat([torch.sin(theta), torch.cos(theta)], dim=1)
+    return theta / math.pi
 
+
+@dataclasses.dataclass(frozen=True)
+class LocationTask(Task):
+    """Angle regression from the frozen composite's RIR-branch features
+    (train_location.py); B = 16, lr 1e-3."""
+
+    name: str = "location"
+    learning_rate: float = 1e-3
+    batch_size: int = 16
+    num_updates: int = 15000
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0
     output_dim: int = 1
@@ -185,10 +351,14 @@ class LocationTask:
         out_dim = 2 if self.target_mode == "sincos" else self.output_dim
         return LocationModule(self.config.num_freq, width, out_dim, generator)
 
+    def build_composite(self, generator: Optional[torch.Generator] = None) -> EchoedSpeechReconModel:
+        """The composite whose RIR branch feeds the head (train_location.py:38)."""
+        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator)
+
     def build_rir_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
-        """The composite's RIR branch, the only part the frozen localizer runs."""
-        flatten = True if self.compat_vq_flatten is None else self.compat_vq_flatten
-        return rir_model(self.config, self.width_scale, flatten, generator)
+        """The composite's RIR branch without its decoder: all the frozen
+        localizer runs."""
+        return rir_model(self.config, self.width_scale, resolved_vq_flatten(self), generator)
 
     def encodings_from_composite(self, rir: ConvolutionalVQVAE, echoed_spec: torch.Tensor) -> torch.Tensor:
         """Frozen RIR-branch features: one-hot encodings reshaped (B, F, K),
@@ -202,6 +372,41 @@ class LocationTask:
             feats = enc.reshape(q.shape[0], self.config.num_freq, -1)
         return feats.detach()
 
+    # ----- frozen-latent cache: the whole composite is frozen here
+    # (train_location.py:69), so the RIR branch's codes are constant per
+    # sample and the step reduces to the MLP -----
+
+    @property
+    def supports_cache(self) -> bool:
+        return True
+
+    def build_cache(self, rir: ConvolutionalVQVAE, batch: SampleBatch) -> Dict[str, torch.Tensor]:
+        return {"rir_codes": rir.get_latent_codes(_transposed_input(batch.echoed_spec))}
+
+    def feats_from_codes(self, rir: ConvolutionalVQVAE, cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """:meth:`encodings_from_composite` from cached codes: the one-hot of
+        the same ids, or the codebook rows of the same ids."""
+        codes = cache["rir_codes"]  # (B, F)
+        if self.input_mode == "quantized":
+            feats = rir.codes_to_latent(codes).transpose(1, 2)  # (B, F, D)
+        else:
+            feats = F.one_hot(codes.long(), rir.num_embeddings).to(rir._vq._embedding.weight.dtype)  # (B, F, K)
+        return feats.detach()
+
+    @property
+    def resident_fields(self) -> Tuple[str, ...]:
+        return ("echoed_spec", "fs", "theta")
+
+    def loss(self, model, batch, train, generator=None, feats: Optional[torch.Tensor] = None):
+        """MSE of the head's prediction on ``feats``, the composite's
+        features of ``batch`` (train_location.py:77-78)."""
+        if feats is None:
+            raise ValueError("LocationTask.loss needs the composite's features (feats=)")
+        pred = model(feats)
+        target = _angle_target(batch.theta.reshape(-1, 1).to(pred.dtype), self.target_mode)
+        loss = torch.mean((pred - target) ** 2)
+        return loss, {"location_error": loss}
+
     def decode_angle(self, pred: torch.Tensor) -> torch.Tensor:
         """Model output -> angle in radians."""
         if self.target_mode == "sincos":
@@ -210,17 +415,31 @@ class LocationTask:
 
 
 @dataclasses.dataclass(frozen=True)
-class JointLocationTask:
-    """RIR encoder + location head fine-tuned together; the deployed
-    localizer (``location_joint``)."""
+class JointLocationTask(Task):
+    """RIR encoder + location head fine-tuned together on the angle loss,
+    the codebook frozen (``location_joint``, beyond the reference, whose
+    train_location.py:69 freezes the composite); the deployed localizer.
+    Gradients reach the encoder through the straight-through estimator; the
+    commitment term of the frozen-codebook VQ loss anchors it."""
 
+    name: str = "location_joint"
+    learning_rate: float = 1e-4
+    batch_size: int = 16
+    num_updates: int = 15000
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0
     compat_vq_flatten: bool = False  # one-hot-free gradients need vectors
     target_mode: str = "sincos"
     output_dim: int = 1
-    # trailing head column: the source radius in meters
+    commitment_weight: float = 0.25
+    # trailing head column: the source radius in meters, trained on
+    # batch.radius with radius_weight
     predict_radius: bool = False
+    radius_weight: float = 1.0
+    # hard-example term: tail_weight x the mean of the worst
+    # ceil(tail_frac x B) per-sample angle errors; 0 leaves it out
+    tail_weight: float = 0.0
+    tail_frac: float = 0.125
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> JointLocationModel:
         rir = rir_model(self.config, self.width_scale, self.compat_vq_flatten, generator)
@@ -229,8 +448,39 @@ class JointLocationTask:
             out_dim += 1
         return JointLocationModel(rir, self.config.num_freq, out_dim, generator)
 
+    @staticmethod
+    def seed_params(fresh: StateDict, composite: StateDict) -> Dict[str, torch.Tensor]:
+        """The joint model's state dict with its RIR branch taken from a
+        composite's (``rir_model.*``, copies): the joint stage's handoff. The
+        branch's decoder, which the joint model lacks, is not read."""
+        return {k: (composite[k].detach().clone() if k.startswith("rir_model.") else v) for k, v in fresh.items()}
+
+    @property
+    def resident_fields(self) -> Tuple[str, ...]:
+        return ("echoed_spec", "fs", "theta", "radius")
+
     def model_inputs(self, echoed_spec: torch.Tensor) -> Tuple[torch.Tensor]:
         return (_transposed_input(echoed_spec),)
+
+    def loss(self, model, batch, train, generator=None):
+        (x_trans,) = self.model_inputs(batch.echoed_spec)
+        pred, perp, vq_loss = model(x_trans)
+        target = _angle_target(batch.theta.reshape(-1, 1).to(pred.dtype), self.target_mode)
+        pred_loc = pred[:, :-1] if self.predict_radius else pred
+        per_sample = torch.mean((pred_loc - target) ** 2, dim=1)  # (B,)
+        mse = torch.mean(per_sample)
+        loss = mse + self.commitment_weight * vq_loss
+        metrics = {"location_error": mse, "rir_perplexity": perp}
+        if self.tail_weight:
+            k = max(1, math.ceil(per_sample.shape[0] * self.tail_frac))
+            tail = torch.mean(torch.topk(per_sample, k).values)
+            loss = loss + self.tail_weight * tail
+            metrics["tail_error"] = tail
+        if self.predict_radius:
+            mse_r = torch.mean((pred[:, -1] - batch.radius.to(pred.dtype)) ** 2)  # meters
+            loss = loss + self.radius_weight * mse_r
+            metrics["radius_error"] = mse_r
+        return loss, metrics
 
     def decode_angle(self, pred: torch.Tensor) -> torch.Tensor:
         if self.target_mode == "sincos":
@@ -242,3 +492,73 @@ class JointLocationTask:
         if not self.predict_radius:
             raise ValueError("decode_radius requires predict_radius=True")
         return pred[:, -1]
+
+
+def graft_pretrained(
+    composite: StateDict, speech: Optional[StateDict] = None, rir: Optional[StateDict] = None
+) -> Dict[str, torch.Tensor]:
+    """The stage handoff: a composite's state dict with the speech and RIR
+    stages' state dicts put under ``speech_model.`` and ``rir_model.``, as
+    copies (the reference loads the pickled modules whole,
+    train_echoed_speech.py:18-19).
+
+    A donor trained with an EMA codebook carries its codebook as the
+    ``_vq._embedding.weight`` buffer beside ``_vq.ema_counts`` and
+    ``_vq.ema_sums``: the codebook becomes the composite's frozen parameter
+    and the EMA statistics are dropped (the JAX ``graft_codebook``)."""
+    out = dict(composite)
+    for prefix, donor in (("speech_model.", speech), ("rir_model.", rir)):
+        if donor is None:
+            continue
+        out = {k: v for k, v in out.items() if not k.startswith(prefix)}
+        for k, v in donor.items():
+            if k not in ("_vq.ema_counts", "_vq.ema_sums"):
+                out[prefix + k] = v.detach().clone()
+    return out
+
+
+def resolved_vq_flatten(task) -> bool:
+    """The task's VQ flatten as a bool, True being the reference's
+    memory-order flatten (vector_quantizer.py:32); ``None`` resolves to it,
+    as the JAX tasks' build_model does without sequence sharding."""
+    v = getattr(task, "compat_vq_flatten", None)
+    return True if v is None else bool(v)
+
+
+def check_flatten_handoff(donor_meta: dict, task, donor_label: str) -> None:
+    """Refuse a stage handoff across VQ flatten modes.
+
+    The two modes give the same parameter shapes but codes of another
+    meaning (memory-order time chunks against channel vectors), so a
+    codebook grafted across them loads and then trains on garbage latents.
+    ``donor_meta`` is the donor stage's metadata; one without a
+    ``compat_vq_flatten`` entry is not checked."""
+    if "compat_vq_flatten" not in donor_meta:
+        return
+    donor = bool(donor_meta["compat_vq_flatten"])
+    mine = resolved_vq_flatten(task)
+    if donor != mine:
+        names = {True: "compat", False: "vectors"}
+        raise ValueError(
+            f"VQ flatten mismatch: stage {donor_label!r} was trained with the "
+            f"{names[donor]!r} flatten but task {task.name!r} resolves to "
+            f"{names[mine]!r}. The codebooks are shape-compatible but their "
+            "codes mean different things, so the handoff would silently "
+            f"corrupt training. Build this task with compat_vq_flatten={donor} "
+            f"(or retrain the donor with compat_vq_flatten={mine})."
+        )
+
+
+_TASKS = {
+    "speech": SpeechVQVAETask,
+    "rir": RirVQVAETask,
+    "echoed": EchoedSpeechTask,
+    "finetune": EncoderFinetuneTask,
+    "location": LocationTask,
+    "location_joint": JointLocationTask,
+}
+
+
+def make_task(name: str, **kwargs) -> Task:
+    """The stage task of ``name`` (one of ``_TASKS``), with ``kwargs`` as fields."""
+    return _TASKS[name](**kwargs)

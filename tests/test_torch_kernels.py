@@ -19,7 +19,9 @@ from acoustic_locating_vq_vae_torch.dsp import znorm
 from acoustic_locating_vq_vae_torch.eval import full_fp32, make_serving_fn
 from acoustic_locating_vq_vae_torch.ops import vq
 from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
-from acoustic_locating_vq_vae_torch.train import JointLocationTask, LocationTask, SpeechVQVAETask, Trainer
+from acoustic_locating_vq_vae_torch.train import (
+    EchoedSpeechTask, EncoderFinetuneTask, JointLocationTask, LocationTask, SpeechVQVAETask, Trainer,
+)
 
 SHAPES = [(512, 128, 1024), (100, 4, 16), (1000, 64, 1024), (513, 128, 100), (12864, 64, 1024),
           # the kernel's other branches: the codebook split over a cluster (N = 1,608), K off and below a
@@ -276,6 +278,40 @@ def test_train_step_on_card_matches_cpu(card, ema):
         assert float((g_gpu[key].double() - p.grad).abs().max()) <= 1e-3 * float(p.grad.abs().max()), key
     for key, v in b_cpu.items():  # the latents differ by conv rounding
         assert float((b_gpu[key] - v).abs().max()) <= 1e-4 * max(1.0, float(v.abs().max())), key
+
+
+# (stage, cached, vq_nearest launches of one train step); the codebooks are
+# frozen in all four stages, so the accumulation kernel never runs
+STAGE_LAUNCHES = [("echoed", False, 2), ("echoed", True, 0), ("finetune", False, 2), ("location", False, 1),
+                  ("location", True, 0), ("location_joint", False, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,cached,nearest", STAGE_LAUNCHES,
+                         ids=[f"{s}-{'cached' if c else 'uncached'}" for s, c, _ in STAGE_LAUNCHES])
+def test_stage_step_launches_on_card(card, stage, cached, nearest):
+    """One train step of each composite and location stage at width 1/16 on
+    the card: a finite loss, ``nearest`` vq_nearest launches (one per frozen
+    branch the step runs) and no codebook-gradient or statistics launch."""
+    g = torch.Generator().manual_seed(3)
+    spec = torch.empty(4, 201, 500).exponential_(generator=g)
+    data = SampleBatch(spec, spec, spec, torch.zeros(4), torch.rand(4, generator=g), torch.ones(4, 201), torch.ones(4))
+    ws = dict(width_scale=1 / 16, batch_size=2)
+    composite = EchoedSpeechTask(**ws).build_model(g).state_dict()
+    task = {"echoed": EchoedSpeechTask(**ws), "finetune": EncoderFinetuneTask(**ws), "location": LocationTask(**ws),
+            "location_joint": JointLocationTask(predict_radius=True, tail_weight=0.5, **ws)}[stage]
+    trainer = Trainer(task, device=card, seed=0, verbose=False,
+                      composite_params=composite if stage == "location" else None)
+    data = trainer.to_device(data)
+    cache = trainer.build_cache(data) if cached else None
+    batch, rows = trainer.sample_cached(data, cache) if cached else (trainer.sample(data), None)
+    counters = (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda)
+    torch.cuda.synchronize()
+    before = [c.launches for c in counters]
+    metrics = trainer.step(batch, cache=rows)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [nearest, 0, 0]
+    assert bool(torch.isfinite(metrics["loss"]))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
