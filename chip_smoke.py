@@ -57,8 +57,19 @@ nothing of JAX. Phases, one line each (more for detail):
 9. timings on the card: each of those stages' train step at its own batch
    size (echoed and finetune B = 64, frames/s = 64 x 500 / step time; location
    and joint B = 16), the cache build per sample, peak memory, a profiler
-   breakdown of each step, and vq_nearest at the two shapes these stages add
-   (N = 32,000, D = 128 and N = 3,216, D = 64).
+   breakdown of each step, vq_nearest at the two shapes these stages add
+   (N = 32,000, D = 128 and N = 3,216, D = 64), and one save_checkpoint and one
+   restore_latest of the compat location trainer (fc_1 and Adam's moments,
+   about 2.5 GB) with their share of that stage at the default ckpt_every;
+10. the pipeline at full width (``pipeline_phase``): run_pipeline in this
+   process (run A), then the pipeline CLI in a subprocess with the same
+   configuration, stopped by a real SIGTERM in the echoed stage (run B, exit
+   75), then rerun with --resume (run C): six stage finals with their metadata,
+   the kernels' launches in every stage, finite evaluations, the completed
+   stages skipped, and run C's finals bitwise equal to run A's; per stage the
+   wall time, step time, cache build, checkpoint bytes, save and restore ms and
+   the share of the wall time outside Trainer.step; a profiler trace of one
+   stage.
 
 A kernel's time is read twice: on the card (some tens of calls captured in one
 CUDA graph and replayed between two events, so no host work lies between the
@@ -66,7 +77,7 @@ launches) and as the enqueue time (two events around back-to-back Python
 calls, which for a call of tens of microseconds is the host's launch rate).
 The ``kernels`` line carries the card's time, one entry for each kernel and
 shape that was both timed and run by the main path's checked and timed runs
-(phases 3 and 6 to 9), with the launches counted at that shape
+(phases 3 and 6 to 10), with the launches counted at that shape
 (``count_by_shape``).
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
@@ -80,6 +91,10 @@ import contextlib
 import copy
 import json
 import math
+import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -118,6 +133,11 @@ LOCATION_GRAD_RTOL = 1e-5
 # of max(1, max |plain|), the plain version run in float64: the kernel sums
 # FP32 rows in its own fixed order
 ACCUM_RTOL = 1e-5
+# phase 10: the pipeline at full width, a few updates a stage, in a scratch directory of the checkout
+PIPE_ROOT = REPO / "build" / "chip_smoke"
+PIPE_UPDATES, PIPE_CKPT_EVERY, PIPE_SEED = 8, 2, 5
+PIPE_WIDTH = 1.0  # width_scale of phase 10's stages: full width
+PIPE_ROWS = {"train": 64, "val": 16}
 # `python3 chip_smoke.py --kernels` runs only what needs no model: the build,
 # the kernels against their plain versions (phases 2 and 5) and their timings
 # (of phases 4 and 7); a short run for working on a kernel
@@ -1044,10 +1064,318 @@ def time_stage(label: str, task, cached: bool, composite, dev, counters, card: s
         tops = "; ".join(f"{k[:70]} x{c} {t / 3 / 1e3:.3f} ms ({t / busy_us:.1%})" for k, c, t in top)
         phase(9, f"{label} step profiled, per step: {wall_us / 3 / 1e3:.4f} ms host clock, card busy "
                  f"{busy_us / 3 / 1e3:.4f} ms ({busy_us / wall_us:.1%}); kernels by device time: {tops}")
+    if label == "location":  # the compat location trainer: fc_1 of 843 MB and its two Adam moments
+        nbytes, save_ms, restore_ms = checkpoint_ms(tr, PIPE_ROOT / "location_store")
+        saves = task.num_updates // task.ckpt_every
+        phase(9, f"{label} checkpoint at step {tr.step_count}: {nbytes} bytes, save_checkpoint {save_ms:.1f} ms, "
+                 f"restore_latest {restore_ms:.1f} ms; at ckpt_every = {task.ckpt_every}, {saves} saves in a "
+                 f"{task.num_updates}-update stage of {task.num_updates * med / 1e3:.1f} s at this step time: "
+                 f"{saves * save_ms / (task.num_updates * med):.2%} of the stage ({card})")
     del tr, data, cache
     gc.collect()
     torch.cuda.empty_cache()
     return {"ms": med, "launches": launches, "steps": len(times) + 3}
+
+
+def checkpoint_ms(tr, store_dir: Path):
+    """One save_checkpoint and one restore_latest of the trainer in a fresh store at ``store_dir`` (deleted
+    after): (bytes of the stage file, save ms, restore ms), host clock between synchronises."""
+    import torch
+    from acoustic_locating_vq_vae_torch.utils import StageStore
+
+    shutil.rmtree(store_dir, ignore_errors=True)
+    tr.store = StageStore(str(store_dir))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(f"{tr.task.name}_{tr.step_count}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if tr.restore_latest() != tr.step_count:
+            raise AssertionError(f"{tr.task.name}: restore_latest did not restore step {tr.step_count}")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        nbytes = (store_dir / "stages" / f"{tr.task.name}_{tr.step_count}" / "state.pt").stat().st_size
+    finally:
+        tr.store = None
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return nbytes, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+# ------------------------------------------------------------------ phase 10: the pipeline
+
+
+def write_pipeline_dataset(root: Path, g):
+    """Seeded training and validation SpecsDataset directories under ``root`` (the port's save_dataset), at
+    the dataset's geometry; returns the config."""
+    from acoustic_locating_vq_vae_torch.data import DatasetConfig, save_dataset
+
+    cfg = DatasetConfig()
+    for split, n in PIPE_ROWS.items():
+        save_dataset(str(root / split), stage_batch(n, g, "cpu"), cfg)
+    return cfg
+
+
+@contextlib.contextmanager
+def stage_clocks(counters):
+    """While open, every ``Trainer.step``, ``build_cache`` and ``save_checkpoint`` and every stage of the
+    pipeline (``pipeline.run_stage``) is timed by the host clock between synchronises, and each stage's
+    kernel launches are counted; yields {stage: {what: [ms, ...], "launches": {kernel: n}}}."""
+    import torch
+    from acoustic_locating_vq_vae_torch.train import loop, pipeline
+
+    clocks = collections.defaultdict(lambda: collections.defaultdict(list))
+
+    def timed(fn, what):
+        def call(*args, **kw):
+            name = args[0].name if what == "stage" else args[0].task.name
+            torch.cuda.synchronize()
+            before = [c.launches for c in counters]
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            clocks[name][what].append((time.perf_counter() - t0) * 1e3)
+            if what == "stage":
+                clocks[name]["launches"] = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+            return out
+        return call
+
+    trainer = loop.Trainer
+    saved = (trainer.step, trainer.build_cache, trainer.save_checkpoint, pipeline.run_stage)
+    trainer.step, trainer.build_cache = timed(saved[0], "step"), timed(saved[1], "cache")
+    trainer.save_checkpoint, pipeline.run_stage = timed(saved[2], "save"), timed(saved[3], "stage")
+    try:
+        yield clocks
+    finally:
+        trainer.step, trainer.build_cache, trainer.save_checkpoint, pipeline.run_stage = saved
+
+
+def pipeline_cli(root: Path, store: Path, log: Path, *extra):
+    """Start the pipeline CLI with phase 10's configuration on the card, its output into ``log``."""
+    cmd = [sys.executable, "-u", "-m", "acoustic_locating_vq_vae_torch.cli.run_pipeline",
+           "--data-dir", str(root / "train"), "--val-dir", str(root / "val"), "--store-dir", str(store),
+           "--updates", str(PIPE_UPDATES), "--seed", str(PIPE_SEED), "--preset", "fixed", "--joint-location",
+           "--predict-radius", "--tail-weight", "0.5", "--cache-frozen", "--ckpt-every", str(PIPE_CKPT_EVERY),
+           "--keep-checkpoints", "1", "--width-scale", str(PIPE_WIDTH), "--device", DEVICE, *extra]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
+    with open(log, "w") as out:
+        return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+
+
+def manifest_tags(store: Path) -> set:
+    try:
+        return set(json.loads((store / "manifest.json").read_text()))
+    except FileNotFoundError:
+        return set()
+
+
+def assert_bitwise(got, want, path: str) -> None:
+    """Bitwise equality of nested dicts / lists of tensors and numbers."""
+    import torch
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys differ: {sorted(set(got) ^ set(want))[:5]}")
+        for k in want:
+            assert_bitwise(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: lengths {len(got)} and {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert_bitwise(a, b, f"{path}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        if not (got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)):
+            diff = (got.double() - want.double()).abs().max() if got.shape == want.shape else "shape"
+            raise AssertionError(f"{path}: not bitwise equal (max |difference| {diff})")
+    elif got != want:
+        raise AssertionError(f"{path}: {got} != {want}")
+
+
+def pipeline_phase(dev, counters, card: str) -> None:
+    """Phase 10: the six-stage pipeline at full width on the card, through its entry points. Run A calls
+    run_pipeline in this process (preset fixed, the joint stage with the range output and a tail term, the
+    frozen-latent cache, PIPE_UPDATES updates a stage, a checkpoint every PIPE_CKPT_EVERY, the newest
+    periodic one kept); run B runs the CLI with the same configuration in a subprocess and sends it a real
+    SIGTERM in the echoed stage; run C reruns the CLI with --resume. Checks the store's six finals, their
+    steps and metadata, the launches per stage, the evaluations, exit 75, the skipped stages and that run
+    C's finals (weights, Adam, step, generators) are bitwise run A's. Prints per stage the wall time, step
+    time, cache build, checkpoint bytes, save and restore ms and the share of the wall time outside
+    Trainer.step; writes a profiler trace of one stage. Deletes its directory at the end."""
+    import torch
+    from acoustic_locating_vq_vae_torch.data import SpecsDataset
+    from acoustic_locating_vq_vae_torch.eval import evaluate_joint_location, evaluate_location
+    from acoustic_locating_vq_vae_torch.train import Trainer, make_task, run_pipeline, run_stage, stage_seed
+    from acoustic_locating_vq_vae_torch.utils import StageStore
+
+    t_phase = time.perf_counter()
+    root = PIPE_ROOT / "pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    store_a, store_b = root / "store_a", root / "store_b"
+    cfg = write_pipeline_dataset(root, torch.Generator().manual_seed(PIPE_SEED))
+    train, val = (SpecsDataset(str(root / split)).load_all() for split in PIPE_ROWS)
+    stages = ("speech", "rir", "echoed", "finetune", "location", "location_joint")
+    want_meta = {
+        "speech": {}, "rir": {}, "echoed": {}, "finetune": {},
+        "location": {"input_mode": "quantized", "target_mode": "normalized_angle"},
+        "location_joint": {"target_mode": "sincos", "predict_radius": True},
+    }
+
+    # ---- run A, in this process
+    for c in counters:
+        c.launches = 0
+    with count_by_shape(), stage_clocks(counters) as clocks:
+        res = run_pipeline(
+            PIPE_SEED, train, val, store_dir=str(store_a), config=cfg, width_scale=PIPE_WIDTH, preset="fixed",
+            joint_location=True,
+            predict_radius=True, joint_task_kwargs={"tail_weight": 0.5}, updates={s: PIPE_UPDATES for s in stages},
+            ckpt_every=PIPE_CKPT_EVERY, keep_checkpoints=1, cache_frozen=True, device=dev, verbose=False,
+        )
+        torch.cuda.synchronize()
+        run_launches = {c.__name__: c.launches for c in counters}
+        evals = {
+            "location": evaluate_location(manifest_task("location", cfg), res["location"][0], res["finetune"][0],
+                                          val, device=dev),
+            "joint": evaluate_joint_location(manifest_task("location_joint", cfg), res["location_joint"][0], val,
+                                             device=dev),
+        }
+    manifest = StageStore(str(store_a)).stages()
+    for s in stages:
+        meta = manifest[s]["metadata"]
+        want = {"task": s, "final": True, "has_rng": True, "compat_vq_flatten": False, **want_meta[s]}
+        if manifest[s]["step"] != PIPE_UPDATES or meta != want:
+            raise AssertionError(f"run A: final {s} at step {manifest[s]['step']} with {meta}, want step "
+                                 f"{PIPE_UPDATES} with {want}")
+        periodic = [t for t in manifest if re.fullmatch(f"{s}_[0-9]+", t)]
+        if len(periodic) > 1:
+            raise AssertionError(f"run A: {s} keeps {periodic}, want at most one periodic tag")
+        got = clocks[s]["launches"]
+        accum = got["codebook_grad_cuda"] + got["codebook_stats_cuda"]
+        if got["nearest_indices_cuda"] < 1 or (accum > 0) != (s in ("speech", "rir")):
+            raise AssertionError(f"run A: {s} launched {got}: vq_nearest in every stage, the accumulation in "
+                                 f"speech and rir only")
+    for name, metrics in evals.items():
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["num_samples"] != PIPE_ROWS["val"]:
+            raise AssertionError(f"run A: {name} evaluation {metrics}")
+    phase(10, f"run A, run_pipeline in process, full width, preset fixed, joint stage with radius and tail "
+              f"term, cache on, {PIPE_UPDATES} updates a stage, a checkpoint every {PIPE_CKPT_EVERY}, keep 1: six "
+              f"finals at step {PIPE_UPDATES} with their tasks' metadata, at most one periodic tag a stage; "
+              f"launches {run_launches}, by stage "
+              + "; ".join(f"{s} {clocks[s]['launches']}" for s in stages)
+              + "; evaluations on the validation rows: " + "; ".join(
+                  f"{name} median {m['median_abs_radians']:.4f} rad, coordinates RMSE {m['rmse_coordinates_m']:.4f} m"
+                  + (f", radius RMSE {m['rmse_radius_m']:.4f} m" if "rmse_radius_m" in m else "")
+                  for name, m in evals.items()))
+
+    # restore_latest of each stage's newest periodic checkpoint into a fresh trainer
+    restore_ms = {}
+    for i, s in enumerate(stages):
+        task = manifest_task(s, cfg)
+        tr = Trainer(task, device=dev, seed=stage_seed(PIPE_SEED, i), verbose=False, checkpoint_dir=str(store_a),
+                     composite_params=res["finetune"][0] if s == "location" else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if tr.restore_latest() != PIPE_UPDATES:
+            raise AssertionError(f"{s}: restore_latest did not find step {PIPE_UPDATES}")
+        torch.cuda.synchronize()
+        restore_ms[s] = (time.perf_counter() - t0) * 1e3
+        del tr
+    torch.cuda.empty_cache()
+
+    # one stage with profile_dir: a trace of steps 2 to 7
+    profile_dir = root / "profile"
+    run_stage(manifest_task("rir", cfg), stage_seed(PIPE_SEED, 1), train, None, num_updates=PIPE_UPDATES,
+              device=dev, verbose=False, profile_dir=str(profile_dir))
+    events = json.loads((profile_dir / "rir.json").read_text())["traceEvents"]
+    kernel_events = sum(e.get("cat") == "kernel" for e in events)
+    if not events:
+        raise AssertionError("profile_dir wrote an empty trace")
+    phase(10, f"run_stage(rir, profile_dir=...) wrote {profile_dir / 'rir.json'}: {len(events)} events, "
+              f"{kernel_events} of them kernels on the card")
+
+    # ---- run B: the CLI in a subprocess, a real SIGTERM in the echoed stage
+    proc = pipeline_cli(root, store_b, root / "run_b.log")
+    try:
+        deadline = time.monotonic() + 600
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"run B exited {proc.returncode} before the echoed stage's first checkpoint:\n"
+                                     + (root / "run_b.log").read_text(encoding="utf-8")[-3000:])
+            tags = manifest_tags(store_b)
+            if any(re.fullmatch("echoed_[0-9]+", t) for t in tags) and "echoed" not in tags:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("run B never reached a periodic checkpoint of the echoed stage")
+            time.sleep(0.005)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        sigterm_ms = (time.perf_counter() - t_sig) * 1e3
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log_b = (root / "run_b.log").read_text(encoding="utf-8")
+    tags = manifest_tags(store_b)
+    echoed_tags = sorted(t for t in tags if re.fullmatch("echoed_[0-9]+", t))
+    if rc != 75 or "[preempted]" not in log_b or "echoed" in tags or len(echoed_tags) != 1 \
+            or not {"speech", "rir"} <= tags:
+        raise AssertionError(f"run B: exit {rc}, store {sorted(tags)}; want exit 75, the speech and rir finals, "
+                             f"one echoed periodic tag and no echoed final:\n{log_b[-3000:]}")
+    preempted_at = int(echoed_tags[0].split("_")[1])
+
+    # ---- run C: the CLI with --resume
+    proc = pipeline_cli(root, store_b, root / "run_c.log", "--resume")
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log_c = (root / "run_c.log").read_text(encoding="utf-8")
+    expected = ["[pipeline] stage 'speech' complete in store — skipping",
+                "[pipeline] stage 'rir' complete in store — skipping", f"[echoed] resumed at step {preempted_at}",
+                "joint location evaluation"]
+    missing = [line for line in expected if line not in log_c]
+    if rc != 0 or missing:
+        raise AssertionError(f"run C: exit {rc}, missing {missing}:\n{log_c[-3000:]}")
+    a, c = StageStore(str(store_a)), StageStore(str(store_b))
+    for s in stages:
+        assert_bitwise(c.load_stage(s), a.load_stage(s), f"run C's final {s} against run A's")
+    phase(10, f"run B, the CLI with the same configuration: SIGTERM once the store showed a periodic echoed "
+              f"tag, exit 75 {sigterm_ms:.1f} ms after the signal, the store holds {echoed_tags[0]} and no echoed "
+              f"final; run C, the CLI with --resume: speech and rir skipped, echoed resumed at step "
+              f"{preempted_at}; every stage's final (weights, Adam state, step, both generators; the joint "
+              f"head included) bitwise equal to run A's")
+
+    # ---- timings of run A
+    parts = []
+    for s in stages:
+        k = clocks[s]
+        wall, steps = k["stage"][0], sum(k["step"])
+        step_ms = statistics.median(k["step"])
+        nbytes = (store_a / "stages" / s / "state.pt").stat().st_size
+        save_ms = statistics.mean(k["save"])
+        task = make_task(s)
+        parts.append(
+            f"{s}: wall {wall:.1f} ms, step median {step_ms:.2f} ms (B={task.batch_size}), cache build "
+            f"{sum(k['cache']):.1f} ms, checkpoint {nbytes} bytes, save {save_ms:.1f} ms (mean of {len(k['save'])}), "
+            f"restore {restore_ms[s]:.1f} ms, {(wall - steps) / wall:.1%} of the wall time outside Trainer.step; "
+            f"at ckpt_every {task.ckpt_every}, a save costs {save_ms / (task.ckpt_every * step_ms):.2%} of the "
+            f"steps between two saves")
+    phase(10, "run A per stage: " + " | ".join(parts) + f"; phase 10 took {time.perf_counter() - t_phase:.1f} s "
+              f"({card})")
+    shutil.rmtree(root)
+
+
+def manifest_task(stage: str, cfg):
+    """The task of ``stage`` as phase 10's pipeline builds it (preset fixed, the joint stage with the range
+    output and a tail term, a checkpoint every PIPE_CKPT_EVERY)."""
+    from acoustic_locating_vq_vae_torch.train import make_task
+
+    kw = dict(config=cfg, width_scale=PIPE_WIDTH, compat_vq_flatten=False, ckpt_every=PIPE_CKPT_EVERY)
+    kw.update({"finetune": {"commitment_weight": 0.25}, "location": {"input_mode": "quantized"},
+               "location_joint": {"predict_radius": True, "tail_weight": 0.5}}.get(stage, {}))
+    return make_task(stage, **kw)
 
 
 def main() -> int:
@@ -1297,6 +1625,9 @@ def main() -> int:
              + f"; echoed frames/s uncached {64 * 500 / stage_runs['echoed']['ms'] * 1e3:.1f}, cached "
              f"{64 * 500 / stage_runs['echoed cached']['ms'] * 1e3:.1f} ({card})")
 
+    # ---- phase 10: the six-stage pipeline at full width, with checkpoints, preemption and resume
+    pipeline_phase(dev, counters, card)
+
     # one entry for each kernel and shape that was timed and that the main path ran, with the launches it
     # made at that shape; every kernel of the path has an entry
     names = {"vq_nearest": ("vq_nearest.cu", 49, max_err), "vq_codebook_grad": ("vq_codebook_accum.cu", 68, accum_err),
@@ -1311,7 +1642,7 @@ def main() -> int:
     missing = set(names) - {e["name"] for e in entries}
     if missing:
         raise AssertionError(f"no timed shape of {sorted(missing)} was launched by the main path: {dict(SHAPE_LAUNCHES)}")
-    phase(9, "launches of the main path's checked and timed runs by kernel and shape: "
+    phase(10, "launches of the main path's checked and timed runs by kernel and shape: "
              + ", ".join(f"{name} ({n}, {d}, {k}) {c}" for (name, n, d, k), c in sorted(SHAPE_LAUNCHES.items())))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

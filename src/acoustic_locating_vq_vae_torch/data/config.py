@@ -3,7 +3,7 @@
 The port's own copy of ``acoustic_locating_vq_vae_tpu/data/config.py:16-80``
 (the port imports nothing of the JAX package). Same fields and defaults as the
 reference's ``dataset_config.npy`` dict (genereate_dataset.py:55-63,78-88),
-and the same reader of that dict.
+and the same writer and reader of that dict.
 """
 
 from __future__ import annotations
@@ -32,6 +32,24 @@ class DatasetConfig:
     @property
     def num_freq(self) -> int:
         return self.NFFT // 2 + 1  # 201
+
+    def to_reference_dict(self) -> dict:
+        """The dict layout of dataset_config.npy (genereate_dataset.py:78-88),
+        plus the framework extras under keys the reference never reads."""
+        return {
+            "fs": int(self.fs),
+            "receiver_position": list(self.receiver_position),
+            "room_dimensions": list(self.room_dimensions),
+            "reverberation_time": self.reverberation_time,
+            "n_sample": int(self.n_sample),
+            "R": self.R,
+            "NFFT": int(self.NFFT),
+            "HOP_LENGTH": int(self.HOP_LENGTH),
+            "Z_LOC_SOURCE": self.Z_LOC_SOURCE,
+            "num_frames": int(self.num_frames),
+            "audio_samples": int(self.audio_samples),
+            "c": self.c,
+        }
 
     @classmethod
     def from_reference_dict(cls, d: dict) -> "DatasetConfig":

@@ -1,7 +1,8 @@
 """Disk-backed datasets and batch sampling.
 
-Counterpart of ``acoustic_locating_vq_vae_tpu/data/dataset.py:40-62`` and
-``:134-229``: ``SpecsDataset`` reads a directory of per-sample files (the
+Counterpart of ``acoustic_locating_vq_vae_tpu/data/dataset.py:40-62``,
+``:95-111`` and ``:134-229``: ``save_dataset`` writes a dataset directory and
+``SpecsDataset`` reads a directory of per-sample files (the
 ``<i>.npz`` files the JAX ``save_dataset`` writes, or the reference's
 ``<i>.pt`` tuples) with its ``dataset_config.npy``, and ``load_all`` stacks
 them into a :class:`SampleBatch` the trainer keeps resident. The collate is
@@ -22,7 +23,7 @@ import torch
 from .config import DatasetConfig
 from .synth import SampleBatch
 
-__all__ = ["SpecsDataset", "sample_without_replacement"]
+__all__ = ["SpecsDataset", "sample_without_replacement", "save_dataset"]
 
 
 def sample_without_replacement(generator: torch.Generator, n: int, k: int) -> torch.Tensor:
@@ -31,6 +32,26 @@ def sample_without_replacement(generator: torch.Generator, n: int, k: int) -> to
     if k > n:
         raise ValueError(f"cannot sample {k} distinct indices from a population of {n}")
     return torch.randperm(n, generator=generator, device=generator.device)[:k]
+
+
+def save_dataset(root_dir: str, batch: SampleBatch, config: DatasetConfig) -> None:
+    """Write a SampleBatch as ``<i>.npz`` files + ``dataset_config.npy``, the
+    JAX ``save_dataset`` layout (its ``data/dataset.py:95-111``), which
+    :class:`SpecsDataset` and the JAX package read back."""
+    os.makedirs(root_dir, exist_ok=True)
+    arrs = batch.map(lambda a: torch.as_tensor(a).cpu().numpy())
+    for i in range(arrs.speech_spec.shape[0]):
+        np.savez(
+            os.path.join(root_dir, f"{i}.npz"),
+            speech_spec=arrs.speech_spec[i],
+            rir_spec=arrs.rir_spec[i],
+            echoed_spec=arrs.echoed_spec[i],
+            fs=arrs.fs[i],
+            theta=arrs.theta[i],
+            wiener_est=arrs.wiener_est[i],
+            radius=arrs.radius[i],
+        )
+    np.save(os.path.join(root_dir, "dataset_config.npy"), config.to_reference_dict())
 
 
 class SpecsDataset:

@@ -1,6 +1,7 @@
-"""Stage task specs, the stage handoff and the training loop."""
+"""Stage task specs, the stage handoff, the training loop and the pipeline."""
 
-from .loop import Trainer, TrainHistory
+from .loop import Preempted, Trainer, TrainHistory
+from .pipeline import run_pipeline, run_stage, stage_seed
 from .tasks import (
     EchoedSpeechTask,
     EncoderFinetuneTask,
@@ -16,7 +17,7 @@ from .tasks import (
 )
 
 __all__ = [
-    "EchoedSpeechTask", "EncoderFinetuneTask", "JointLocationTask", "LocationTask", "RirVQVAETask",
+    "EchoedSpeechTask", "EncoderFinetuneTask", "JointLocationTask", "LocationTask", "Preempted", "RirVQVAETask",
     "SpeechVQVAETask", "Task", "Trainer", "TrainHistory", "check_flatten_handoff", "graft_pretrained",
-    "make_task", "resolved_vq_flatten",
+    "make_task", "resolved_vq_flatten", "run_pipeline", "run_stage", "stage_seed",
 ]

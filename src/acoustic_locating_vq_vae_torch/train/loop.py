@@ -1,9 +1,10 @@
 """The training loop of every stage.
 
-Counterpart of the core of ``acoustic_locating_vq_vae_tpu/train/loop.py``:
-``TrainHistory`` (:89-130), the ``Trainer``'s state, optimizer and frozen
-composite (:133-319), its step (:423-475), ``fit`` (:659-737), the resident
-field check (:739-753) and the frozen-latent cache (:609-633, :783-813):
+Counterpart of ``acoustic_locating_vq_vae_tpu/train/loop.py``: ``Preempted``
+(:47-62), ``TrainHistory`` (:89-130), the ``Trainer``'s state, optimizer and
+frozen composite (:133-319), its step (:423-475), ``request_preemption`` and
+``fit`` (:502-737), the resident field check (:739-753), the frozen-latent
+cache (:609-633, :783-813) and the checkpoints (:817-918):
 
 * the dataset is resident on the trainer's device; each step samples a fresh
   batch without replacement (the reference's fresh-shuffle
@@ -14,22 +15,38 @@ field check (:739-753) and the frozen-latent cache (:609-633, :783-813):
   outside the square root, bias-corrected). A frozen parameter ends the step
   with no gradient, which Adam skips: the exact zero update that optax gives
   a zero gradient;
-* the location stage reads the RIR branch of a frozen composite
-  (``composite_params``), held in eval mode outside the optimizer;
+* a stage that reads a frozen module outside its model gets it from its task
+  (``Task.build_frozen``: the location stage's RIR branch of
+  ``composite_params``), held in eval mode outside the optimizer; the task's
+  ``step_loss`` and ``step_cache`` are the trainer's one loss path and one
+  cache path;
 * with ``cache_frozen``, a task with a frozen path (``supports_cache``)
   trains from its frozen branches' code ids, computed once per resident
   dataset and sampled with their rows;
 * with ``val_replaces_train`` every ``eval_every``-th step is an eval step
   that takes the place of a train step (train_speech.py:57,76-87);
+* the trainer counts its steps (``step_count``, the JAX ``state.step``, eval steps
+  included); ``fit`` runs from it up to ``num_updates``. With a store
+  (``checkpoint_dir``) it saves a periodic checkpoint every
+  ``task.ckpt_every`` steps and a final one at the end; a checkpoint holds
+  the model's state dict (EMA buffers included), Adam's state dict, the step
+  and the states of both CPU generators, so a resumed run draws the same
+  batches and jitter decisions as an uninterrupted one and its steps are
+  bitwise the same;
+* SIGTERM during ``fit`` saves a checkpoint at the next step boundary and
+  raises :class:`Preempted`; ``fit(resume=True)`` continues from the newest
+  periodic checkpoint;
+* ``profile_dir`` traces steady-state steps with ``torch.profiler``;
 * convolutions and matrix products run in full float32 (TF32 off), the
   convolutions with cuDNN's deterministic algorithms (``utils/device.py``).
 
-The mesh, on-the-fly synthesis, host-staged data, checkpoints, preemption and
-profiling come in later slices.
+The mesh, on-the-fly synthesis and host-staged data come in later slices.
 """
 
 from __future__ import annotations
 
+import contextlib
+import signal
 import time
 from typing import Dict, List, Mapping, Optional, Tuple, Union
 
@@ -38,12 +55,33 @@ import torch
 
 from ..data.dataset import sample_without_replacement
 from ..data.synth import SampleBatch
+from ..utils.checkpoint import StageStore
 from ..utils.device import deterministic_convs, full_fp32, resolve_device
-from .tasks import LocationTask, Task
+from ..utils.profiling import trace
+from .tasks import Task
 
 Cache = Dict[str, torch.Tensor]
 
-__all__ = ["Trainer", "TrainHistory"]
+__all__ = ["Trainer", "TrainHistory", "Preempted"]
+
+# metadata attributes a checkpoint records where the task has them: the
+# evaluation-relevant configuration, which the VQ flatten is without a shape
+_META_ATTRS = ("compat_vq_flatten", "input_mode", "target_mode", "predict_radius")
+
+
+class Preempted(RuntimeError):
+    """Raised by :meth:`Trainer.fit` when a preemption signal (SIGTERM)
+    arrives mid-stage: the loop saves a periodic checkpoint first, so
+    restarting with ``resume=True`` (or the pipeline CLI's ``--resume``)
+    loses at most the in-flight step."""
+
+    def __init__(self, task: str, completed: int):
+        super().__init__(
+            f"stage {task!r} preempted after {completed} updates; checkpoint "
+            "saved — restart with resume=True / --resume to continue"
+        )
+        self.task = task
+        self.completed = completed
 
 
 class TrainHistory:
@@ -106,7 +144,11 @@ class Trainer:
     the trainer holds that branch alone (``frozen_rir``), as the reference
     reads only ``composite_params["rir_model"]``.
     ``cache_frozen`` trains a task with a frozen path from its cached codes
-    (see :meth:`build_cache`); it is ignored for a task without one."""
+    (see :meth:`build_cache`); it is ignored for a task without one.
+    ``checkpoint_dir`` is a :class:`StageStore` root for the stage's
+    checkpoints; ``keep_checkpoints`` > 0 keeps only the newest N periodic
+    ones (finals are kept). ``profile_dir`` traces steps ``start + 2`` to
+    ``start + 7`` of :meth:`fit` into ``<profile_dir>/<task name>.json``."""
 
     def __init__(
         self,
@@ -118,38 +160,30 @@ class Trainer:
         verbose: bool = True,
         composite_params: Optional[Mapping[str, torch.Tensor]] = None,
         cache_frozen: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        keep_checkpoints: int = 0,
+        profile_dir: Optional[str] = None,
     ):
         self.task = task
         self.device = resolve_device(device)
-        self.frozen_rir = None
-        if isinstance(task, LocationTask):
-            if composite_params is None:
-                raise ValueError("LocationTask requires composite_params")
-            self.frozen_rir = self._frozen_rir(composite_params)
+        self.frozen_rir = task.build_frozen(composite_params, self.device)
         self.model = task.build_model(torch.Generator().manual_seed(seed)).to(self.device).train()
-        # model.parameters() yields a tied residual block once
+        # model.parameters() yields a tied residual block once, so Adam's
+        # state, keyed by parameter order, is the same for every trainer of
+        # the task
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=task.learning_rate)
         self.sample_generator = torch.Generator().manual_seed(seed + 1)
         self.jitter_generator = torch.Generator().manual_seed(seed + 2)
+        self.step_count = 0  # steps taken, eval steps included (the JAX state.step)
         self.log_every = log_every
         self.val_replaces_train = val_replaces_train
         self.verbose = verbose
         self.cache_frozen = cache_frozen
-
-    def _frozen_rir(self, params: Mapping[str, torch.Tensor]) -> torch.nn.Module:
-        """The composite's RIR branch without its never-run decoder, from the
-        ``rir_model.*`` entries of ``params`` (copies; every key of the branch
-        required), on the trainer's device, in eval mode and without
-        gradients."""
-        with torch.device("meta"):  # no weights are drawn only to be overwritten
-            rir = self.task.build_rir_model()
-        prefix = "rir_model."
-        rir.load_state_dict(
-            {k[len(prefix):]: torch.as_tensor(v).to(self.device, torch.float32, copy=True)
-             for k, v in params.items() if k.startswith(prefix) and not k.startswith(prefix + "_decoder.")},
-            assign=True,
-        )
-        return rir.eval().requires_grad_(False)
+        self.store = StageStore(checkpoint_dir) if checkpoint_dir else None
+        self.keep_checkpoints = int(keep_checkpoints)
+        self.profile_dir = profile_dir
+        # set by the SIGTERM handler fit() installs, or request_preemption()
+        self._preempt_requested = False
 
     def to_device(self, data: SampleBatch) -> SampleBatch:
         return data.map(lambda a: torch.as_tensor(a).to(self.device))
@@ -190,38 +224,27 @@ class Trainer:
         for the location stage), in chunks of ``min(n, max(B, 8))`` rows with
         bf16-stored rows cast to float32 first, as a step sees them. Valid
         for the whole stage: the cached branches get no gradient, so Adam
-        leaves their weights bitwise unchanged."""
+        leaves their weights bitwise unchanged, and a resumed stage rebuilds
+        the same cache from the same frozen weights."""
         if not self.task.supports_cache:
             raise ValueError(f"task {self.task.name!r} has no frozen path to cache")
-        # the location stage reads the composite's RIR branch, the echoed stage its own branches
-        frozen = self.model if self.frozen_rir is None else self.frozen_rir
         n = int(data.speech_spec.shape[0])
         chunk = min(n, max(int(self.task.batch_size), 8))
         parts = []
         with torch.no_grad(), full_fp32(), deterministic_convs():
             for i in range(0, n, chunk):
                 idx = torch.arange(i, min(i + chunk, n), device=data.speech_spec.device)
-                parts.append(self.task.build_cache(frozen, self._rows(data, idx)))
+                parts.append(self.task.step_cache(self.model, self.frozen_rir, self._rows(data, idx)))
         return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
     def _loss(self, batch: SampleBatch, train: bool, cache: Optional[Cache]):
-        task = self.task
-        if self.frozen_rir is not None:
-            rir = self.frozen_rir
-            with torch.no_grad():
-                if cache is not None:
-                    feats = task.feats_from_codes(rir, cache)
-                else:
-                    feats = task.encodings_from_composite(rir, batch.echoed_spec)
-            return task.loss(self.model, batch, train, self.jitter_generator, feats=feats)
-        if cache is not None:
-            return task.loss_cached(self.model, batch, cache, train, self.jitter_generator)
-        return task.loss(self.model, batch, train, self.jitter_generator)
+        return self.task.step_loss(self.model, self.frozen_rir, batch, train, self.jitter_generator, cache)
 
     def step(self, batch: SampleBatch, train: bool = True, cache: Optional[Cache] = None) -> Dict[str, torch.Tensor]:
         """One train step (loss, backward, Adam) or eval step on an already
         sampled batch, from its cache rows where given; returns the metrics
-        as 0-d tensors, ``loss`` among them, without waiting for the device."""
+        as 0-d tensors, ``loss`` among them, without waiting for the device.
+        Advances the step count."""
         with full_fp32(), deterministic_convs():
             if train:
                 self.optimizer.zero_grad(set_to_none=True)
@@ -231,22 +254,61 @@ class Trainer:
             else:
                 with torch.no_grad():
                     loss, metrics = self._loss(batch, False, cache)
+        self.step_count += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         return metrics
+
+    # ------------------------------------------------------------------- fit
+
+    def request_preemption(self) -> None:
+        """Ask the running fit() to checkpoint and raise :class:`Preempted`
+        before its next step. Signal-handler-safe (sets a flag only); also
+        the path for callers outside the main thread, where fit() cannot
+        install its SIGTERM handler."""
+        self._preempt_requested = True
 
     def fit(
         self,
         train_data: SampleBatch,
         val_data: Optional[SampleBatch] = None,
         num_updates: Optional[int] = None,
+        resume: bool = False,
+        save_final: bool = True,
     ) -> TrainHistory:
-        """Run ``num_updates`` steps (the task's count by default) over the
-        resident ``train_data``; with ``val_data`` and ``val_replaces_train``
-        every ``eval_every``-th step is an eval step on it instead. With
-        ``cache_frozen`` and a task that supports it, the cache of each
-        dataset is built first."""
+        """Run the stage from the trainer's step count up to ``num_updates`` (the
+        task's count when 0 or None) over the resident ``train_data``; with
+        ``val_data`` and ``val_replaces_train`` every ``eval_every``-th step
+        is an eval step on it instead. With ``cache_frozen`` and a task that
+        supports it, the cache of each dataset is built first.
+
+        With ``resume=True`` and a store, the stage restarts from its newest
+        periodic checkpoint (weights, Adam, step and generators), so a crash
+        loses at most ``ckpt_every`` updates. ``save_final=False`` leaves out
+        the stage-final checkpoint (periodic ones still save).
+
+        While running, SIGTERM triggers graceful preemption: the loop saves a
+        resumable checkpoint at the next step boundary and raises
+        :class:`Preempted`; nothing is saved before the first step."""
+        installed = False
+        try:
+            prev = signal.signal(signal.SIGTERM, lambda *_: self.request_preemption())
+            installed = True
+        except ValueError:
+            prev = None  # not the main thread: flag-only preemption
+        try:
+            return self._fit(train_data, val_data, num_updates, resume, save_final)
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
+            self._preempt_requested = False
+
+    def _fit(self, train_data, val_data, num_updates, resume, save_final) -> TrainHistory:
         num_updates = num_updates or self.task.num_updates
+        if resume:
+            restored = self.restore_latest()
+            if restored is not None and self.verbose:
+                print(f"[{self.task.name}] resumed at step {restored}", flush=True)
         caching = self.cache_frozen and self.task.supports_cache
         train_data = self.to_device(train_data)
         self._check_resident_fields(train_data)
@@ -261,24 +323,115 @@ class Trainer:
         history = TrainHistory()
         t0 = time.perf_counter()
         frames = 0
-        for i in range(num_updates):
-            is_val = (
-                val_data is not None and self.val_replaces_train and (i + 1) % self.task.eval_every == 0
-            )
-            data, cache = (val_data, val_cache) if is_val else (train_data, train_cache)
-            if cache is None:
-                batch, rows = self.sample(data), None
-            else:
-                batch, rows = self.sample_cached(data, cache)
-            metrics = self.step(batch, train=not is_val, cache=rows)
-            if not is_val:
-                # loop.py:710: frames of the nominal batch
-                frames += self.task.batch_size * self.task.config.num_frames
-            history.append(metrics, val=is_val)
-            if self.verbose and (i + 1) % self.log_every == 0:
-                parts = [f"[{self.task.name}] {i + 1} iterations"]
-                parts += [f"{k}: {history.running_mean(k):.4f}" for k in metrics]
-                if frames:
-                    parts.append(f"({frames / (time.perf_counter() - t0):.0f} frames/s)")
-                print("  ".join(parts), flush=True)
+        start = self.step_count
+        trace_window = (start + 2, min(start + 7, num_updates))  # steady-state steps
+        with contextlib.ExitStack() as tracing:
+            for i in range(start, num_updates):
+                if self._preempt_requested:
+                    tracing.close()
+                    if self.store is not None and i > start:
+                        # the periodic tag convention, so restore_latest finds it
+                        self.save_checkpoint(tag=f"{self.task.name}_{i}")
+                    raise Preempted(self.task.name, i)
+                if self.profile_dir and i == trace_window[0]:
+                    tracing.enter_context(trace(self.profile_dir, self.task.name))
+                is_val = (
+                    val_data is not None and self.val_replaces_train and (i + 1) % self.task.eval_every == 0
+                )
+                data, cache = (val_data, val_cache) if is_val else (train_data, train_cache)
+                if cache is None:
+                    batch, rows = self.sample(data), None
+                else:
+                    batch, rows = self.sample_cached(data, cache)
+                metrics = self.step(batch, train=not is_val, cache=rows)
+                if not is_val:
+                    # loop.py:710: frames of the nominal batch
+                    frames += self.task.batch_size * self.task.config.num_frames
+                history.append(metrics, val=is_val)
+                if self.profile_dir and trace_window[0] <= i == trace_window[1] - 1:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    tracing.close()
+                    if self.verbose:
+                        print(f"[{self.task.name}] trace written to {self.profile_dir}", flush=True)
+                if self.verbose and (i + 1) % self.log_every == 0:
+                    parts = [f"[{self.task.name}] {i + 1} iterations"]
+                    parts += [f"{k}: {history.running_mean(k):.4f}" for k in metrics]
+                    if frames:
+                        parts.append(f"({frames / (time.perf_counter() - t0):.0f} frames/s)")
+                    print("  ".join(parts), flush=True)
+                if self.store is not None and (i + 1) % self.task.ckpt_every == 0:
+                    self.save_checkpoint(tag=f"{self.task.name}_{i + 1}")
+        if self.store is not None and save_final:
+            self.save_checkpoint(tag=self.task.name, final=True)
         return history
+
+    # ----------------------------------------------------------- checkpoints
+
+    def save_checkpoint(self, tag: str, final: bool = False) -> None:
+        """Save the trainer's state under ``tag``, with the task's
+        evaluation-relevant configuration as metadata; then retire all but
+        the newest ``keep_checkpoints`` periodic checkpoints of the task."""
+        tree = {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step_count,
+            "sample_generator": self.sample_generator.get_state(),
+            "jitter_generator": self.jitter_generator.get_state(),
+        }
+        meta: dict = {"task": self.task.name, "final": final, "has_rng": True}
+        for attr in _META_ATTRS:
+            if hasattr(self.task, attr):
+                v = getattr(self.task, attr)
+                if attr == "compat_vq_flatten":
+                    v = True if v is None else bool(v)  # as the task's build_model resolves it
+                meta[attr] = v
+        self.store.save_stage(tag, tree, step=self.step_count, metadata=meta)
+        if not final and self.keep_checkpoints > 0:
+            prefix = f"{self.task.name}_"
+            periodic = sorted(
+                ((t, m) for t, m in self.store.stages().items()
+                 if t.startswith(prefix) and t[len(prefix):].isdigit()),
+                key=lambda x: _ckpt_rank(x[1]),
+            )
+            for t, _ in periodic[: -self.keep_checkpoints]:
+                self.store.delete_stage(t)
+
+    def load_stage_params(self, name: str) -> Dict[str, torch.Tensor]:
+        """The model state dict of stage ``name`` in the store (on the CPU)."""
+        return self.store.load_stage(name)["model"]
+
+    def restore_latest(self) -> Optional[int]:
+        """Load the newest periodic checkpoint of this task from the store
+        into the trainer (weights, Adam, step, generators) and return the
+        completed updates, or None when there is none. "Newest" is by
+        :func:`_ckpt_rank`, the ranking the GC retires by, so resume never
+        picks a tag the GC is about to delete, nor a previous run's stale
+        higher-step tag."""
+        if self.store is None:
+            return None
+        prefix = f"{self.task.name}_"
+        best = None
+        for tag, meta in self.store.stages().items():
+            if tag.startswith(prefix) and tag[len(prefix):].isdigit():
+                rank = _ckpt_rank(meta)
+                if best is None or rank > best[1]:
+                    best = (tag, rank)
+        if best is None:
+            return None
+        tree = self.store.load_stage(best[0])  # on the CPU, where the generators' states live
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        self.sample_generator.set_state(tree["sample_generator"])
+        self.jitter_generator.set_state(tree["jitter_generator"])
+        self.step_count = int(tree["step"])
+        return self.step_count
+
+
+def _ckpt_rank(meta: dict):
+    """Recency ranking for periodic checkpoints, the one key both the GC
+    (retire lowest-ranked) and restore_latest (resume highest-ranked) use.
+    Primary: the store's monotonic per-save ``seq`` counter, which survives
+    wall-clock steps and a retrain into a store still holding a previous
+    run's higher-step tags; then save time, then step."""
+    return (meta.get("seq", -1), meta.get("time", meta["step"]))

@@ -15,7 +15,12 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/train/tasks.py``:
   output decoding;
 * the stage handoff (``graft_pretrained``, :542-576), the VQ-flatten guard
   (``resolved_vq_flatten``, ``check_flatten_handoff``, :579-617) and
-  ``make_task`` (:764-775).
+  ``make_task`` (:764-775);
+* the trainer's one loss path and one cache path, ``Task.step_loss`` and
+  ``Task.step_cache``, with the frozen module a stage reads outside its model
+  (``Task.build_frozen``: the location stage's RIR branch, whose features
+  ``LocationTask.frozen_features`` computes; the JAX ``Trainer`` branches on
+  the task's type at loop.py:245, :304 and :798).
 
 The port's tasks take a model and a batch (weights live in the modules, not
 in a parameter tree), and the stage handoff works on state dicts. bf16
@@ -89,6 +94,30 @@ class Task:
         (``build_cache`` with ``loss_cached`` or ``feats_from_codes``)."""
         return False
 
+    def build_frozen(
+        self, composite_params: Optional[StateDict], device: torch.device
+    ) -> Optional[torch.nn.Module]:
+        """The frozen module outside the trained model that the stage reads,
+        built from ``composite_params``; None for a stage that reads none."""
+        return None
+
+    def step_loss(
+        self, model: torch.nn.Module, frozen: Optional[torch.nn.Module], batch: SampleBatch, train: bool,
+        generator: Optional[torch.Generator] = None, cache: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The trainer's loss of a step: from the batch's cache rows where
+        given (``loss_cached``), else from the batch (``loss``)."""
+        if cache is not None:
+            return self.loss_cached(model, batch, cache, train, generator)
+        return self.loss(model, batch, train, generator)
+
+    def step_cache(
+        self, model: torch.nn.Module, frozen: Optional[torch.nn.Module], batch: SampleBatch
+    ) -> Dict[str, torch.Tensor]:
+        """The cache rows of ``batch``, read from the module that holds the
+        frozen path: the model's own frozen branches."""
+        return self.build_cache(model, batch)
+
 
 def _apply_vqvae(model: ConvolutionalVQVAE, x: torch.Tensor, train: bool, ema: bool, generator):
     """The JAX ``_apply_vqvae`` (tasks.py:108-120): an EMA codebook updates
@@ -109,7 +138,7 @@ def _vqvae_loss(recon_out, target: torch.Tensor):
 class SpeechVQVAETask(Task):
     """Clean-speech power-spectrogram reconstruction (train_speech.py):
     H = 1024, 3 tied residual layers of width 1024, D = 128, K = 1024,
-    decoder jitter p = 0.25, the reference's memory-order VQ flatten."""
+    decoder jitter p = 0.25."""
 
     name: str = "speech"
     learning_rate: float = 1e-3
@@ -118,9 +147,11 @@ class SpeechVQVAETask(Task):
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0  # <1 for smoke/test configs
     vq_ema: bool = False  # EMA codebook (option; gradient mode = reference parity)
+    # None resolves to the reference's memory-order flatten (no sequence sharding in the port)
+    compat_vq_flatten: Optional[bool] = None
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
-        return speech_model(self.config, self.width_scale, True, generator, vq_ema=self.vq_ema)
+        return speech_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, vq_ema=self.vq_ema)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:
@@ -138,7 +169,7 @@ class SpeechVQVAETask(Task):
 @dataclasses.dataclass(frozen=True)
 class RirVQVAETask(Task):
     """RIR VQ-VAE: transposed spectrogram in, Wiener estimate out
-    (train_rir.py), with the reference's memory-order VQ flatten."""
+    (train_rir.py)."""
 
     name: str = "rir"
     learning_rate: float = 1e-3
@@ -147,9 +178,11 @@ class RirVQVAETask(Task):
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0
     vq_ema: bool = False
+    compat_vq_flatten: Optional[bool] = None  # None: the reference's memory-order flatten
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
-        return rir_model(self.config, self.width_scale, True, generator, decoder=True, vq_ema=self.vq_ema)
+        return rir_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, decoder=True,
+                         vq_ema=self.vq_ema)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:
@@ -343,13 +376,15 @@ class LocationTask(Task):
     # None resolves like the JAX composite builder: the compat flatten
     compat_vq_flatten: Optional[bool] = None
 
+    @property
+    def feature_width(self) -> int:
+        """The width of a feature row: the RIR branch's D for quantized
+        latents, its K for one-hot encodings."""
+        return _scale(64 if self.input_mode == "quantized" else 1024, self.width_scale)
+
     def build_model(self, generator: Optional[torch.Generator] = None) -> LocationModule:
-        if self.input_mode == "quantized":
-            width = _scale(64, self.width_scale)  # rir embedding_dim
-        else:
-            width = _scale(1024, self.width_scale)  # rir num_embeddings (K)
         out_dim = 2 if self.target_mode == "sincos" else self.output_dim
-        return LocationModule(self.config.num_freq, width, out_dim, generator)
+        return LocationModule(self.config.num_freq, self.feature_width, out_dim, generator)
 
     def build_composite(self, generator: Optional[torch.Generator] = None) -> EchoedSpeechReconModel:
         """The composite whose RIR branch feeds the head (train_location.py:38)."""
@@ -392,6 +427,43 @@ class LocationTask(Task):
         else:
             feats = F.one_hot(codes.long(), rir.num_embeddings).to(rir._vq._embedding.weight.dtype)  # (B, F, K)
         return feats.detach()
+
+    # ----- the frozen path: the composite's RIR branch, held by the trainer
+    # outside the model and the optimizer -----
+
+    def build_frozen(self, composite_params: Optional[StateDict], device: torch.device) -> ConvolutionalVQVAE:
+        """The composite's RIR branch without its never-run decoder, from the
+        ``rir_model.*`` entries of ``composite_params`` (copies; every key of
+        the branch required), on ``device``, in eval mode and without
+        gradients: the reference reads only ``composite_params["rir_model"]``
+        (train_location.py:38,69)."""
+        if composite_params is None:
+            raise ValueError("LocationTask requires composite_params")
+        with torch.device("meta"):  # no weights are drawn only to be overwritten
+            rir = self.build_rir_model()
+        prefix = "rir_model."
+        rir.load_state_dict(
+            {k[len(prefix):]: torch.as_tensor(v).to(device, torch.float32, copy=True)
+             for k, v in composite_params.items() if k.startswith(prefix) and not k.startswith(prefix + "_decoder.")},
+            assign=True,
+        )
+        return rir.eval().requires_grad_(False)
+
+    def frozen_features(
+        self, rir: ConvolutionalVQVAE, batch: SampleBatch, cache: Optional[Dict[str, torch.Tensor]] = None
+    ) -> torch.Tensor:
+        """The head's input: the frozen RIR branch's features of ``batch``,
+        from its cache rows where given."""
+        with torch.no_grad():
+            if cache is not None:
+                return self.feats_from_codes(rir, cache)
+            return self.encodings_from_composite(rir, batch.echoed_spec)
+
+    def step_loss(self, model, frozen, batch, train, generator=None, cache=None):
+        return self.loss(model, batch, train, generator, feats=self.frozen_features(frozen, batch, cache))
+
+    def step_cache(self, model, frozen, batch):
+        return self.build_cache(frozen, batch)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:

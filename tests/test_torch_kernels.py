@@ -16,11 +16,12 @@ import torch
 
 from acoustic_locating_vq_vae_torch.data import DatasetConfig, SampleBatch
 from acoustic_locating_vq_vae_torch.dsp import znorm
-from acoustic_locating_vq_vae_torch.eval import full_fp32, make_serving_fn
+from acoustic_locating_vq_vae_torch.eval import evaluate_joint_location, evaluate_location, full_fp32, make_serving_fn
 from acoustic_locating_vq_vae_torch.ops import vq
 from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
 from acoustic_locating_vq_vae_torch.train import (
-    EchoedSpeechTask, EncoderFinetuneTask, JointLocationTask, LocationTask, SpeechVQVAETask, Trainer,
+    EchoedSpeechTask, EncoderFinetuneTask, JointLocationTask, LocationTask, Preempted, SpeechVQVAETask, Trainer,
+    run_pipeline,
 )
 
 SHAPES = [(512, 128, 1024), (100, 4, 16), (1000, 64, 1024), (513, 128, 100), (12864, 64, 1024),
@@ -312,6 +313,70 @@ def test_stage_step_launches_on_card(card, stage, cached, nearest):
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [nearest, 0, 0]
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
+def test_preempt_and_resume_on_card_is_bitwise(card, tmp_path):
+    """A speech stage at width 1/16 on the card, preempted during its 3rd of
+    6 updates and resumed from its checkpoint by a fresh trainer, ends with
+    the weights, Adam state and generators of an uninterrupted run, bitwise."""
+    g = torch.Generator().manual_seed(5)
+    spec = torch.empty(16, 201, 500).exponential_(generator=g)
+    data = SampleBatch(spec, spec, spec, torch.zeros(16), torch.zeros(16), torch.ones(16, 201), torch.ones(16))
+    task = SpeechVQVAETask(width_scale=1 / 16, batch_size=8, ckpt_every=2)
+    make = lambda store: Trainer(task, device=card, seed=4, verbose=False, checkpoint_dir=str(tmp_path / store))
+    straight = make("a")
+    straight.fit(data, num_updates=6)
+    preempted = make("b")
+    step = preempted.step
+
+    def stepping(*args, **kw):
+        if preempted.step_count == 2:
+            preempted.request_preemption()  # as a SIGTERM during the 3rd update does
+        return step(*args, **kw)
+
+    preempted.step = stepping
+    with pytest.raises(Preempted):
+        preempted.fit(data, num_updates=6)
+    resumed = make("b")
+    resumed.fit(data, num_updates=6, resume=True)
+    assert resumed.step_count == 6
+    assert_bitwise(resumed.model.state_dict(), straight.model.state_dict(), "model")
+    assert_bitwise(resumed.optimizer.state_dict(), straight.optimizer.state_dict(), "adam")
+    assert torch.equal(resumed.sample_generator.get_state(), straight.sample_generator.get_state())
+    assert torch.equal(resumed.jitter_generator.get_state(), straight.jitter_generator.get_state())
+
+
+def assert_bitwise(got, want, path="state"):
+    """Bitwise equality of nested dicts / lists of tensors and numbers (state
+    dicts, Adam's state, checkpoints)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (path, set(got) ^ set(want))
+        for k in want:
+            assert_bitwise(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert_bitwise(a, b, f"{path}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want.cpu()), path
+    else:
+        assert got == want, (path, got, want)
+
+
+def test_pipeline_entry_points_without_a_card_raise(monkeypatch):
+    """run_pipeline, evaluate_location and evaluate_joint_location run on the
+    card unless asked for the CPU, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = torch.ones(2, 201, 500)
+    data = SampleBatch(spec, spec, spec, torch.zeros(2), torch.zeros(2), torch.ones(2, 201), torch.ones(2))
+    ws = dict(width_scale=1 / 32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_pipeline(0, data, None, width_scale=1 / 32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_location(LocationTask(**ws), {}, {}, data)
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_joint_location(JointLocationTask(**ws), {}, data)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
