@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1, 2 and 5 and the kernels' timings only
+    python3 chip_smoke.py --converge  # phase 1, then the speech and RIR stages to a known loss only
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -61,15 +62,36 @@ nothing of JAX. Phases, one line each (more for detail):
    (N = 32,000, D = 128 and N = 3,216, D = 64), and one save_checkpoint and one
    restore_latest of the compat location trainer (fc_1 and Adam's moments,
    about 2.5 GB) with their share of that stage at the default ckpt_every;
-10. the pipeline at full width (``pipeline_phase``): run_pipeline in this
-   process (run A), then the pipeline CLI in a subprocess with the same
-   configuration, stopped by a real SIGTERM in the echoed stage (run B, exit
-   75), then rerun with --resume (run C): six stage finals with their metadata,
-   the kernels' launches in every stage, finite evaluations, the completed
-   stages skipped, and run C's finals bitwise equal to run A's; per stage the
-   wall time, step time, cache build, checkpoint bytes, save and restore ms and
-   the share of the wall time outside Trainer.step; a profiler trace of one
-   stage.
+10. the pipeline at full width (``pipeline_phase``) on training and
+   validation sets synthesized on the card from the seed, as the CLI does
+   without --data-dir: run_pipeline in this process on the CLI's own
+   ``load_datasets`` (run A), then the pipeline CLI in a subprocess with the
+   same flags, stopped by a real SIGTERM in the echoed stage (run B, exit 75),
+   then rerun with --resume (run C): six stage finals with their metadata, the
+   kernels' launches in every stage, finite evaluations on the synthesized
+   validation rows, the completed stages skipped, and run C's finals bitwise
+   equal to run A's (so three processes synthesized the same sets); per stage
+   the wall time, step time, cache build, checkpoint bytes, save and restore
+   ms and the share of the wall time outside Trainer.step; a profiler trace
+   of one stage;
+11. synthesis at the full geometry (``synthesis_phase``; 201 x 500 frames,
+   6400-tap RIRs over the 179,443 images of the geometry-boxed lattice): at
+   three seeds a B = 64 batch on the card against the port in float64 on the
+   CPU from the same draws (its first SYNTH_CHECK_B rows; RIRs, the three
+   spectrograms and the Wiener estimate under SYNTH_LIMITS), the speech's
+   float32 phase drift card vs CPU, two synthesize_batch and two
+   generate_rir_batch runs bitwise equal, every option once (rt60_range,
+   radius_range, snr_range with snr_clean_prob and the SNR read back from the
+   spectrograms, fixed_rir, fixed_speech, a given geometry replayed bitwise),
+   and the timings: synthesize_batch in samples/s and generate_rir_batch in
+   RIRs/s at B = 64 (medians of 10, peak memory, the RIR by chunk size), a
+   profiler breakdown of one batch, and make_dataset of the CLI's default
+   1000 + 200 rows.
+
+``--converge`` trains the speech and RIR VQ-VAEs at full width for 1,500
+updates each on 256 + 64 synthesized rows and prints the recon of the first
+and last 100 updates, the perplexity and the validation recon (the JAX
+package's VALIDATION.md figures beside them, not gated).
 
 A kernel's time is read twice: on the card (some tens of calls captured in one
 CUDA graph and replayed between two events, so no host work lies between the
@@ -138,6 +160,23 @@ PIPE_ROOT = REPO / "build" / "chip_smoke"
 PIPE_UPDATES, PIPE_CKPT_EVERY, PIPE_SEED = 8, 2, 5
 PIPE_WIDTH = 1.0  # width_scale of phase 10's stages: full width
 PIPE_ROWS = {"train": 64, "val": 16}
+# phase 11: synthesis at the full geometry
+SYNTH_B = 64
+SYNTH_SEEDS = (11, 12, 13)
+SYNTH_CHECK_B = 8  # rows of each card batch also synthesized in float64 on the CPU from the same draws
+SYNTH_CHUNK = 8192  # lattice images per step of the RIR's walk (synthesize_batch's rir_chunk)
+SYNTH_CHUNK_SWEEP = (2048, 4096, 8192, 16384)
+SYNTH_IMAGES = 179443  # the geometry-boxed lattice at radius 1 m
+# card vs the port in float64 on the CPU, max |error| / max |float64| (rir_spec after each sample's scale).
+# Set from the H100's readings at SYNTH_SEEDS (PERF.md): rir 2.9e-5, speech_spec 2.6e-7, echoed_spec
+# 1.2e-5, wiener_est 8.2e-5, rir_spec 1.5e-3; each limit about 3x its reading
+SYNTH_LIMITS = {"rir": 1e-4, "speech_spec": 1e-6, "echoed_spec": 5e-5, "wiener_est": 3e-4, "rir_spec": 5e-3}
+SNR_TOL_DB = 0.15  # measured on the waveform; the 80,000 noise samples' own power spreads 0.02 dB (1 sigma)
+SYNTH_DATASET_ROWS = (1000, 200)  # the CLI's default training and validation sets
+# `python3 chip_smoke.py --converge`: the build, then the speech and RIR stages to a known loss only
+CONVERGE = "--converge"
+CONVERGE_UPDATES, CONVERGE_SEED = 1500, 21
+CONVERGE_ROWS = {"train": 256, "val": 64}
 # `python3 chip_smoke.py --kernels` runs only what needs no model: the build,
 # the kernels against their plain versions (phases 2 and 5) and their timings
 # (of phases 4 and 7); a short run for working on a kernel
@@ -1105,17 +1144,6 @@ def checkpoint_ms(tr, store_dir: Path):
 # ------------------------------------------------------------------ phase 10: the pipeline
 
 
-def write_pipeline_dataset(root: Path, g):
-    """Seeded training and validation SpecsDataset directories under ``root`` (the port's save_dataset), at
-    the dataset's geometry; returns the config."""
-    from acoustic_locating_vq_vae_torch.data import DatasetConfig, save_dataset
-
-    cfg = DatasetConfig()
-    for split, n in PIPE_ROWS.items():
-        save_dataset(str(root / split), stage_batch(n, g, "cpu"), cfg)
-    return cfg
-
-
 @contextlib.contextmanager
 def stage_clocks(counters):
     """While open, every ``Trainer.step``, ``build_cache`` and ``save_checkpoint`` and every stage of the
@@ -1150,13 +1178,19 @@ def stage_clocks(counters):
         trainer.step, trainer.build_cache, trainer.save_checkpoint, pipeline.run_stage = saved
 
 
-def pipeline_cli(root: Path, store: Path, log: Path, *extra):
+def pipeline_argv(store: Path, *extra) -> list:
+    """The pipeline CLI's flags in phase 10: no --data-dir, so both sets are synthesized on the card from
+    --seed. Run A parses the same flags in process (``cli.run_pipeline.load_datasets``), so its data is the
+    CLI's."""
+    return ["--dataset-size", str(PIPE_ROWS["train"]), "--val-size", str(PIPE_ROWS["val"]), "--store-dir", str(store),
+            "--updates", str(PIPE_UPDATES), "--seed", str(PIPE_SEED), "--preset", "fixed", "--joint-location",
+            "--predict-radius", "--tail-weight", "0.5", "--cache-frozen", "--ckpt-every", str(PIPE_CKPT_EVERY),
+            "--keep-checkpoints", "1", "--width-scale", str(PIPE_WIDTH), "--device", DEVICE, *extra]
+
+
+def pipeline_cli(store: Path, log: Path, *extra):
     """Start the pipeline CLI with phase 10's configuration on the card, its output into ``log``."""
-    cmd = [sys.executable, "-u", "-m", "acoustic_locating_vq_vae_torch.cli.run_pipeline",
-           "--data-dir", str(root / "train"), "--val-dir", str(root / "val"), "--store-dir", str(store),
-           "--updates", str(PIPE_UPDATES), "--seed", str(PIPE_SEED), "--preset", "fixed", "--joint-location",
-           "--predict-radius", "--tail-weight", "0.5", "--cache-frozen", "--ckpt-every", str(PIPE_CKPT_EVERY),
-           "--keep-checkpoints", "1", "--width-scale", str(PIPE_WIDTH), "--device", DEVICE, *extra]
+    cmd = [sys.executable, "-u", "-m", "acoustic_locating_vq_vae_torch.cli.run_pipeline", *pipeline_argv(store, *extra)]
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
     with open(log, "w") as out:
         return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, env=env, cwd=REPO)
@@ -1192,17 +1226,19 @@ def assert_bitwise(got, want, path: str) -> None:
 
 
 def pipeline_phase(dev, counters, card: str) -> None:
-    """Phase 10: the six-stage pipeline at full width on the card, through its entry points. Run A calls
-    run_pipeline in this process (preset fixed, the joint stage with the range output and a tail term, the
+    """Phase 10: the six-stage pipeline at full width on the card, through its entry points, on sets
+    synthesized on the card from PIPE_SEED as the CLI synthesizes them. Run A calls run_pipeline in this
+    process (preset fixed, the joint stage with the range output and a tail term, the
     frozen-latent cache, PIPE_UPDATES updates a stage, a checkpoint every PIPE_CKPT_EVERY, the newest
     periodic one kept); run B runs the CLI with the same configuration in a subprocess and sends it a real
     SIGTERM in the echoed stage; run C reruns the CLI with --resume. Checks the store's six finals, their
     steps and metadata, the launches per stage, the evaluations, exit 75, the skipped stages and that run
-    C's finals (weights, Adam, step, generators) are bitwise run A's. Prints per stage the wall time, step
+    C's finals (weights, Adam, step, generators) are bitwise run A's, so the three processes synthesized the
+    same data. Prints per stage the wall time, step
     time, cache build, checkpoint bytes, save and restore ms and the share of the wall time outside
     Trainer.step; writes a profiler trace of one stage. Deletes its directory at the end."""
     import torch
-    from acoustic_locating_vq_vae_torch.data import SpecsDataset
+    from acoustic_locating_vq_vae_torch.cli.run_pipeline import build_parser, load_datasets
     from acoustic_locating_vq_vae_torch.eval import evaluate_joint_location, evaluate_location
     from acoustic_locating_vq_vae_torch.train import Trainer, make_task, run_pipeline, run_stage, stage_seed
     from acoustic_locating_vq_vae_torch.utils import StageStore
@@ -1211,8 +1247,17 @@ def pipeline_phase(dev, counters, card: str) -> None:
     root = PIPE_ROOT / "pipeline"
     shutil.rmtree(root, ignore_errors=True)
     store_a, store_b = root / "store_a", root / "store_b"
-    cfg = write_pipeline_dataset(root, torch.Generator().manual_seed(PIPE_SEED))
-    train, val = (SpecsDataset(str(root / split)).load_all() for split in PIPE_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, train, val = load_datasets(build_parser().parse_args(pipeline_argv(store_a)))
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    for name, data in (("train", train), ("val", val)):
+        n = PIPE_ROWS[name]
+        if data.speech_spec.shape != (n, cfg.num_freq, cfg.num_frames) or data.speech_spec.device.type != torch.device(DEVICE).type \
+                or not all(bool(torch.isfinite(a.float()).all()) for a in data):
+            raise AssertionError(f"run A: synthesized {name} set {tuple(data.speech_spec.shape)} on "
+                                 f"{data.speech_spec.device}, want ({n}, 201, 500) on the card, all finite")
     stages = ("speech", "rir", "echoed", "finetune", "location", "location_joint")
     want_meta = {
         "speech": {}, "rir": {}, "echoed": {}, "finetune": {},
@@ -1256,12 +1301,13 @@ def pipeline_phase(dev, counters, card: str) -> None:
     for name, metrics in evals.items():
         if not all(math.isfinite(v) for v in metrics.values()) or metrics["num_samples"] != PIPE_ROWS["val"]:
             raise AssertionError(f"run A: {name} evaluation {metrics}")
-    phase(10, f"run A, run_pipeline in process, full width, preset fixed, joint stage with radius and tail "
-              f"term, cache on, {PIPE_UPDATES} updates a stage, a checkpoint every {PIPE_CKPT_EVERY}, keep 1: six "
+    phase(10, f"run A, run_pipeline in process on sets synthesized on the card from seed {PIPE_SEED} "
+              f"({PIPE_ROWS['train']} + {PIPE_ROWS['val']} rows in {synth_s:.2f} s, load_datasets as the CLI), "
+              f"full width, preset fixed, joint stage with radius and tail term, cache on, {PIPE_UPDATES} updates a stage, a checkpoint every {PIPE_CKPT_EVERY}, keep 1: six "
               f"finals at step {PIPE_UPDATES} with their tasks' metadata, at most one periodic tag a stage; "
               f"launches {run_launches}, by stage "
               + "; ".join(f"{s} {clocks[s]['launches']}" for s in stages)
-              + "; evaluations on the validation rows: " + "; ".join(
+              + "; evaluations on the synthesized validation rows: " + "; ".join(
                   f"{name} median {m['median_abs_radians']:.4f} rad, coordinates RMSE {m['rmse_coordinates_m']:.4f} m"
                   + (f", radius RMSE {m['rmse_radius_m']:.4f} m" if "rmse_radius_m" in m else "")
                   for name, m in evals.items()))
@@ -1293,7 +1339,7 @@ def pipeline_phase(dev, counters, card: str) -> None:
               f"{kernel_events} of them kernels on the card")
 
     # ---- run B: the CLI in a subprocess, a real SIGTERM in the echoed stage
-    proc = pipeline_cli(root, store_b, root / "run_b.log")
+    proc = pipeline_cli(store_b, root / "run_b.log")
     try:
         deadline = time.monotonic() + 600
         while True:
@@ -1324,7 +1370,7 @@ def pipeline_phase(dev, counters, card: str) -> None:
     preempted_at = int(echoed_tags[0].split("_")[1])
 
     # ---- run C: the CLI with --resume
-    proc = pipeline_cli(root, store_b, root / "run_c.log", "--resume")
+    proc = pipeline_cli(store_b, root / "run_c.log", "--resume")
     try:
         rc = proc.wait(timeout=900)
     finally:
@@ -1341,11 +1387,11 @@ def pipeline_phase(dev, counters, card: str) -> None:
     a, c = StageStore(str(store_a)), StageStore(str(store_b))
     for s in stages:
         assert_bitwise(c.load_stage(s), a.load_stage(s), f"run C's final {s} against run A's")
-    phase(10, f"run B, the CLI with the same configuration: SIGTERM once the store showed a periodic echoed "
+    phase(10, f"run B, the CLI with the same configuration, its sets synthesized from --seed: SIGTERM once the store showed a periodic echoed "
               f"tag, exit 75 {sigterm_ms:.1f} ms after the signal, the store holds {echoed_tags[0]} and no echoed "
               f"final; run C, the CLI with --resume: speech and rir skipped, echoed resumed at step "
               f"{preempted_at}; every stage's final (weights, Adam state, step, both generators; the joint "
-              f"head included) bitwise equal to run A's")
+              f"head included) bitwise equal to run A's, so three processes synthesized the same sets")
 
     # ---- timings of run A
     parts = []
@@ -1365,6 +1411,268 @@ def pipeline_phase(dev, counters, card: str) -> None:
     phase(10, "run A per stage: " + " | ".join(parts) + f"; phase 10 took {time.perf_counter() - t_phase:.1f} s "
               f"({card})")
     shutil.rmtree(root)
+
+
+# ------------------------------------------------------------------ phase 11: synthesis
+
+
+def head_draws(draws, k: int):
+    """The first ``k`` samples of a SynthDraws."""
+    return type(draws)(*(a[:k] if hasattr(a, "shape") else a for a in draws))
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| over max |want|, in float64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def ratio_shape_err(got, want, echoed) -> tuple:
+    """rir_spec against a reference with each sample's scale divided out: the
+    max-normalization divides by |speech/echoed| at the bin of the smallest
+    echoed power (1e-9 of the median in some samples), so float32 rounding
+    of that one bin sets the sample's scale. Per sample: the median ratio
+    over the bins whose echoed power exceeds 1e-3 of its max, then the
+    largest relative difference there. Returns (that difference, the
+    scales)."""
+    got, want, echoed = (a.detach().double().cpu() for a in (got, want, echoed))
+    errs, scales = [], []
+    for b in range(got.shape[0]):
+        mask = echoed[b] >= 1e-3 * echoed[b].max()
+        scale = float((got[b][mask] / want[b][mask]).median())
+        errs.append(float(((got[b][mask] - scale * want[b][mask]).abs() / (scale * want[b][mask]).abs()).max()))
+        scales.append(scale)
+    return max(errs), scales
+
+
+def sync_times_ms(fn, steps: int = 10, warmup: int = 2):
+    """Median host-clock time of ``fn()`` between synchronises, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def synthesis_phase(dev, card: str) -> None:
+    """Phase 11: synthesis at the full geometry (201 x 500, 6400-tap RIRs over 179,443 lattice images) on the
+    card: at three seeds a B = 64 batch against the port in float64 on the CPU from the same draws (its first
+    SYNTH_CHECK_B rows), the speech's float32 phase drift, bitwise repeats, every option once, and the
+    timings."""
+    import torch
+    from acoustic_locating_vq_vae_torch import data
+    from acoustic_locating_vq_vae_torch.data import speech
+    from acoustic_locating_vq_vae_torch.data.synth import add_sensor_noise
+    from acoustic_locating_vq_vae_torch.dsp import fft_convolve, generate_rir_batch, source_coordinates
+    from acoustic_locating_vq_vae_torch.dsp.rir import _chunked_lattice
+
+    t_phase = time.perf_counter()
+    cfg = data.DatasetConfig()
+    boxes = dict(zip(("source_box", "receiver_box"), data.geometry_boxes(cfg, cfg.R)))
+    rir_kw = dict(room=tuple(cfg.room_dimensions), nsample=cfg.n_sample, fs=float(cfg.fs), c=cfg.c,
+                  rt60=cfg.reverberation_time, chunk=SYNTH_CHUNK, **boxes)
+    images = int((_chunked_lattice(rir_kw["room"], cfg.n_sample, rir_kw["fs"], cfg.c, True, boxes["source_box"],
+                                   boxes["receiver_box"], SYNTH_CHUNK)[0][..., 3] >= 0).sum())
+    if images != SYNTH_IMAGES:
+        raise AssertionError(f"the boxed lattice holds {images} images, want {SYNTH_IMAGES}")
+
+    # ---- the card against the port in float64 on the CPU, same draws
+    worst = collections.defaultdict(float)
+    scales = []
+    drift = collections.defaultdict(float)
+    for seed in SYNTH_SEEDS:
+        draws = data.draw_synthesis(torch.Generator(dev).manual_seed(seed), SYNTH_B, cfg)
+        got = data.synthesize_from_draws(draws, cfg)
+        h = data.rirs_from_draws(draws, cfg)
+        ref_draws = head_draws(draws, SYNTH_CHECK_B).to("cpu", torch.float64)
+        ref = data.synthesize_from_draws(ref_draws, cfg)
+        h_ref = data.rirs_from_draws(ref_draws, cfg)
+        k = SYNTH_CHECK_B
+        if got.speech_spec.shape != (SYNTH_B, 201, 500) or got.wiener_est.shape != (SYNTH_B, 201) \
+                or not all(bool(torch.isfinite(a.float()).all()) for a in got):
+            raise AssertionError(f"seed {seed}: batch of shape {tuple(got.speech_spec.shape)}, want (64, 201, 500), "
+                                 "all finite")
+        errs = {"rir": max_rel(h[:k], h_ref)}
+        for name in ("speech_spec", "echoed_spec", "wiener_est"):
+            errs[name] = max_rel(getattr(got, name)[:k], getattr(ref, name))
+        errs["rir_spec"], sc = ratio_shape_err(got.rir_spec[:k], ref.rir_spec, ref.echoed_spec)
+        scales += sc
+        for name, e in errs.items():
+            worst[name] = max(worst[name], e)
+        # the speech's float32 phase (a cumulative sum of f0 over 80,000 samples), card against the CPU
+        sd = speech.speech_draws(torch.Generator(dev).manual_seed(seed), SYNTH_CHECK_B, cfg.audio_samples, cfg.fs)
+        on_card = speech.speech_from_draws(sd).cpu().double()
+        cpu32 = speech.speech_from_draws(speech.SpeechDraws(*(a.cpu() for a in sd))).double()
+        cpu64 = speech.speech_from_draws(speech.SpeechDraws(*(a.cpu().double() for a in sd)))
+        for name, (a, b) in {"card - CPU f32": (on_card, cpu32), "card - CPU f64": (on_card, cpu64),
+                             "CPU f32 - CPU f64": (cpu32, cpu64)}.items():
+            drift[name] = max(drift[name], float((a - b).abs().max()))
+        del got, h, draws
+    bad = {name: e for name, e in worst.items() if e > SYNTH_LIMITS[name]}
+    phase(11, f"card vs the port in float64 on the CPU from the same draws, full geometry, B={SYNTH_B} on the card, "
+              f"its first {SYNTH_CHECK_B} rows on the CPU, seeds {SYNTH_SEEDS}: worst max|error| / max|float64| "
+              + ", ".join(f"{name} {e:.3g} (limit {SYNTH_LIMITS[name]:g})" for name, e in worst.items())
+              + f" (rir_spec after each sample's scale; the scales card/float64 span {min(scales):.4f} to "
+              f"{max(scales):.4f}); unit-peak speech from the same draws, max |difference| "
+              + ", ".join(f"{name} {e:.3g}" for name, e in drift.items()))
+    if bad:
+        raise AssertionError(f"card vs CPU float64 above the limits: {bad}")
+
+    # ---- bitwise repeats
+    runs = [data.synthesize_batch(torch.Generator(dev).manual_seed(SYNTH_SEEDS[0]), SYNTH_B, cfg, device=dev)
+            for _ in range(2)]
+    for name, a, b in zip(data.SampleBatch._fields, *runs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"two synthesize_batch runs from equal generators differ in {name}")
+    receiver = torch.tensor(cfg.receiver_position, device=dev)
+    sources = source_coordinates(runs[0].theta, receiver, torch.tensor(cfg.room_dimensions, device=dev),
+                                 z_loc=cfg.Z_LOC_SOURCE)
+    rirs = [generate_rir_batch(sources, receiver, **rir_kw) for _ in range(2)]
+    if not torch.equal(*rirs):
+        raise AssertionError("two generate_rir_batch runs differ")
+    del runs, rirs
+
+    # ---- every option once, B = 16
+    b16 = 16
+    gen = lambda: torch.Generator(dev).manual_seed(SYNTH_SEEDS[1])  # noqa: E731
+    report = []
+    d = data.draw_synthesis(gen(), b16, cfg, rt60_range=(0.2, 0.8), radius_range=(0.5, 1.4))
+    batch = data.synthesize_from_draws(d, cfg)
+    if not (0.2 <= float(d.rt60.min()) and float(d.rt60.max()) <= 0.8 and 0.5 <= float(d.radius.min())
+            and float(d.radius.max()) <= 1.4 and torch.equal(batch.radius, d.radius)
+            and bool(torch.isfinite(batch.echoed_spec).all())):
+        raise AssertionError("rt60_range / radius_range: draws out of range or a non-finite batch")
+    report.append(f"rt60_range (0.2, 0.8) and radius_range (0.5, 1.4): T60 {float(d.rt60.min()):.3f}-"
+                  f"{float(d.rt60.max()):.3f} s, radius {float(d.radius.min()):.3f}-{float(d.radius.max()):.3f} m")
+    d = data.draw_synthesis(gen(), b16, cfg, snr_range=(5.0, 25.0), snr_clean_prob=0.25)
+    noisy = data.synthesize_from_draws(d, cfg)
+    quiet = data.synthesize_from_draws(d._replace(snr_db=None, noise=None, clean=None), cfg)
+    # the echoed waveform the batch was made from, rebuilt from the same draws
+    echoed = fft_convolve(d.speech, data.rirs_from_draws(d, cfg), mode="same")
+    wave = add_sensor_noise(echoed, d.snr_db, d.noise, d.clean)
+    clean = d.clean
+    snr = 10 * (echoed.double().square().mean(1) / (wave - echoed).double().square().mean(1)).log10()
+    snr_err = (snr[~clean] - d.snr_db[~clean].double()).cpu()
+    if not torch.equal(noisy.echoed_spec, data.observed_power_spec(wave, cfg)) \
+            or not torch.equal(noisy.speech_spec, quiet.speech_spec) or int(clean.sum()) in (0, b16) \
+            or not torch.equal(noisy.echoed_spec[clean], quiet.echoed_spec[clean]) \
+            or torch.equal(noisy.echoed_spec[~clean], quiet.echoed_spec[~clean]) \
+            or float(snr_err.abs().max()) > SNR_TOL_DB:
+        raise AssertionError(f"snr_range: {int(clean.sum())} clean samples, measured - drawn SNR "
+                             f"{snr_err.tolist()} dB (limit {SNR_TOL_DB})")
+    report.append(f"snr_range (5, 25) dB with snr_clean_prob 0.25: the noisy batch's echoed spectrogram bitwise "
+                  f"that of its echoed waveform plus sensor noise, {int(clean.sum())} clean samples bitwise the "
+                  f"noiseless batch, the others' SNR measured on the waveform within "
+                  f"{float(snr_err.abs().max()):.4f} dB of the drawn (limit {SNR_TOL_DB})")
+    fixed = data.synthesize_batch(gen(), b16, cfg, fixed_rir=True, fixed_speech=True, device=dev)
+    for name in ("speech_spec", "echoed_spec", "rir_spec", "theta"):
+        t = getattr(fixed, name)
+        if not torch.equal(t, t[:1].expand(t.shape)):
+            raise AssertionError(f"fixed_rir and fixed_speech: {name} differs between samples")
+    rir_only = data.synthesize_batch(gen(), b16, cfg, fixed_rir=True, device=dev)
+    if not torch.equal(rir_only.theta, rir_only.theta[:1].expand(b16)) or torch.equal(
+            rir_only.speech_spec[0], rir_only.speech_spec[1]):
+        raise AssertionError("fixed_rir: the angle varies or the speech does not")
+    report.append("fixed_rir and fixed_speech: one angle, one utterance, equal rows")
+    drawn = data.synthesize_batch(gen(), b16, cfg, device=dev)
+    replay = data.synthesize_batch(gen(), b16, cfg, theta=drawn.theta, radius=drawn.radius, device=dev)
+    for name, a, b in zip(data.SampleBatch._fields, drawn, replay):
+        if not torch.equal(a, b):
+            raise AssertionError(f"given geometry: the replay of a drawn geometry differs in {name}")
+    report.append("given theta and radius of a drawn batch: bitwise that batch")
+    phase(11, "every option once on the card, B=16: " + "; ".join(report))
+    del noisy, quiet, echoed, wave, fixed, rir_only, drawn, replay, batch
+
+    # ---- timings
+    torch.cuda.empty_cache()
+    g = torch.Generator(dev).manual_seed(SYNTH_SEEDS[2])
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the peaks below count what the call adds to this
+    synth_ms, synth_times = sync_times_ms(lambda: data.synthesize_batch(g, SYNTH_B, cfg, device=dev))
+    synth_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    chunk_ms = {}
+    for chunk in SYNTH_CHUNK_SWEEP:
+        kw = dict(rir_kw, chunk=chunk)
+        torch.cuda.reset_peak_memory_stats()
+        ms, _ = sync_times_ms(lambda: generate_rir_batch(sources, receiver, **kw))
+        chunk_ms[chunk] = (ms, (torch.cuda.max_memory_allocated() - held) / 1e9)
+    rir_ms = chunk_ms[SYNTH_CHUNK][0]
+    phase(11, f"synthesize_batch B={SYNTH_B}: median {synth_ms:.3f} ms over {len(synth_times)} (min "
+              f"{min(synth_times):.3f}, max {max(synth_times):.3f}), {SYNTH_B / synth_ms * 1e3:.1f} samples/s, peak "
+              f"memory {synth_peak:.3f} GB above what was held before; generate_rir_batch B={SYNTH_B}, chunk {SYNTH_CHUNK}: median "
+              f"{rir_ms:.3f} ms, {SYNTH_B / rir_ms * 1e3:.1f} RIRs/s ({SYNTH_B * SYNTH_IMAGES / rir_ms / 1e6:.3f} G "
+              f"image sources/s); by chunk, time / peak memory: "
+              + ", ".join(f"{c} {ms:.3f} ms / {gb:.3f} GB" for c, (ms, gb) in chunk_ms.items()) + f" ({card})")
+    wall_us, busy_us, top = device_breakdown(lambda _: data.synthesize_batch(g, SYNTH_B, cfg, device=dev), [None],
+                                             top=8)
+    if busy_us == 0:
+        phase(11, "synthesize_batch: the profiler recorded no device time")
+    else:
+        tops = "; ".join(f"{kname[:60]} x{c} {t / 1e3:.3f} ms ({t / busy_us:.1%})" for kname, c, t in top)
+        phase(11, f"synthesize_batch B={SYNTH_B} profiled: {wall_us / 1e3:.3f} ms host clock, card busy "
+                  f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}); kernels by device time: {tops}")
+    made = {}
+    for size in SYNTH_DATASET_ROWS:
+        gd = torch.Generator(dev).manual_seed(size)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms, times = sync_times_ms(lambda: data.make_dataset(gd, size, cfg, device=dev), steps=10, warmup=1)
+        made[size] = (ms / 1e3, min(times) / 1e3, max(times) / 1e3, (torch.cuda.max_memory_allocated() - held) / 1e9)
+    row_bytes = 4 * (3 * cfg.num_freq * cfg.num_frames + cfg.num_freq + 3)  # the fields of one float32 row
+    n_train, n_val = SYNTH_DATASET_ROWS
+    phase(11, "make_dataset on the card, batches of 32, median of 10 after a warm-up: " + "; ".join(
+        f"{n} rows {s:.3f} s (min {lo:.3f}, max {hi:.3f}; {n / s:.1f} samples/s; {n * row_bytes / 1e9:.3f} GB "
+        f"resident, peak {peak:.3f} GB above what was held before)" for n, (s, lo, hi, peak) in made.items())
+        + f": the CLI's default sets take {made[n_train][0] + made[n_val][0]:.3f} s; phase 11 took "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# ------------------------------------------------------------------ --converge: speech and RIR stages to a known loss
+
+
+def converge_phase(dev, card: str) -> None:
+    """Speech and RIR VQ-VAEs at full width, CONVERGE_UPDATES updates each, on a CONVERGE_ROWS set synthesized on
+    the card (VALIDATION.md's stage-convergence run). Prints the recon of the first and last 100 updates, the
+    perplexity of the last 100, the validation recon and the step time. RNG streams differ from the JAX
+    package's, so the readings are set beside its figures, not gated."""
+    import torch
+    from acoustic_locating_vq_vae_torch import data
+    from acoustic_locating_vq_vae_torch.train import RirVQVAETask, SpeechVQVAETask, Trainer
+
+    cfg = data.DatasetConfig()
+    sets = {}
+    for i, (name, n) in enumerate(CONVERGE_ROWS.items()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sets[name] = data.make_dataset(torch.Generator(dev).manual_seed(CONVERGE_SEED + i), n, cfg, device=dev)
+        torch.cuda.synchronize()
+        phase("converge", f"synthesized the {name} set, {n} rows, in {time.perf_counter() - t0:.2f} s")
+    for label, task in (("speech", SpeechVQVAETask()), ("rir", RirVQVAETask())):
+        tr = Trainer(task, device=dev, seed=CONVERGE_SEED, verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.fit(sets["train"], sets["val"], num_updates=CONVERGE_UPDATES).finalize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec, perp, val = hist["train"]["recon_error"], hist["train"]["perplexity"], hist["val"]["recon_error"]
+        if not all(math.isfinite(float(v)) for v in (*rec, *val)):
+            raise AssertionError(f"{label}: a non-finite recon error")
+        phase("converge", f"{label} VQ-VAE, full width, {CONVERGE_UPDATES} updates on {CONVERGE_ROWS['train']} "
+                          f"synthesized rows: recon first 100 {rec[:100].mean():.4f} -> last 100 "
+                          f"{rec[-100:].mean():.4f}, perplexity of the last 100 {perp[-100:].mean():.2f}, val recon "
+                          f"{val.mean():.4f} (mean of {len(val)} eval steps on the {CONVERGE_ROWS['val']} val rows, "
+                          f"last {val[-1]:.4f}); {wall:.1f} s, {wall / CONVERGE_UPDATES * 1e3:.2f} ms a step "
+                          f"({card}); JAX on a TPU (VALIDATION.md:58-63, a yardstick of the loss only): speech "
+                          f"0.49 -> 0.19, RIR 0.97 -> 0.124")
+        del tr
+        torch.cuda.empty_cache()
 
 
 def manifest_task(stage: str, cfg):
@@ -1415,6 +1723,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: {line.strip()}", flush=True)
+
+    if CONVERGE in sys.argv[1:]:
+        converge_phase(dev, card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     if KERNELS_ONLY in sys.argv[1:]:
         check_nearest(vq, nearest_indices_cuda, dev)
@@ -1627,6 +1940,9 @@ def main() -> int:
 
     # ---- phase 10: the six-stage pipeline at full width, with checkpoints, preemption and resume
     pipeline_phase(dev, counters, card)
+
+    # ---- phase 11: synthesis at the full geometry, card vs CPU float64, options, timings
+    synthesis_phase(dev, card)
 
     # one entry for each kernel and shape that was timed and that the main path ran, with the launches it
     # made at that shape; every kernel of the path has an entry

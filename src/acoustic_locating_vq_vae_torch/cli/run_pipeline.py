@@ -1,18 +1,22 @@
-"""Run the training pipeline end to end from a dataset directory: speech +
-RIR VQ-VAEs -> echoed composite -> encoder fine-tune -> location regressor
-(and, with --joint-location, the joint localizer), with stage handoff through
-the store, then evaluate the location models on the validation set.
+"""Run the training pipeline end to end: speech + RIR VQ-VAEs -> echoed
+composite -> encoder fine-tune -> location regressor (and, with
+--joint-location, the joint localizer), with stage handoff through the store,
+then evaluate the location models on the validation set.
 
-    python -m acoustic_locating_vq_vae_torch.cli.run_pipeline --data-dir DIR [--val-dir DIR] \\
-        [--store-dir DIR] [--resume] [--device cpu]
+    python -m acoustic_locating_vq_vae_torch.cli.run_pipeline [--data-dir DIR] [--val-dir DIR] \\
+        [--dataset-size N] [--val-size N] [--store-dir DIR] [--resume] [--device cpu]
 
 Counterpart of the JAX package's ``scripts/run_pipeline.py`` and of the parts
-of ``scripts/_common.py`` that apply here (``base_parser``'s flags,
-``exit_on_preemption``). The dataset is a ``SpecsDataset`` directory (the
-port's ``data.save_dataset`` or the JAX ``save_dataset`` writes one); it is
-not synthesized. SIGTERM during a stage saves a checkpoint and exits with 75
-(EX_TEMPFAIL); rerun with ``--resume`` to skip the completed stages and
-continue the interrupted one from its checkpoint.
+of ``scripts/_common.py`` that apply here (``base_parser``'s flags, ``setup``'s
+data, ``exit_on_preemption``). Without ``--data-dir`` the training set is
+synthesized on the device from ``--seed``, and without ``--val-dir`` the
+validation set too (``--val-size 0``: none); a dataset directory is a
+``SpecsDataset`` directory (``cli.generate_dataset``, ``data.save_dataset``
+or the JAX ``save_dataset`` writes one). A rerun with the same seed
+synthesizes the same sets, so ``--resume`` continues on the same data.
+SIGTERM during a stage saves a checkpoint and exits with 75 (EX_TEMPFAIL);
+rerun with ``--resume`` to skip the completed stages and continue the
+interrupted one from its checkpoint.
 """
 
 from __future__ import annotations
@@ -22,7 +26,12 @@ import contextlib
 import json
 import sys
 
-__all__ = ["build_parser", "exit_on_preemption", "main"]
+import numpy as np
+
+__all__ = [
+    "add_synthesis_args", "build_parser", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "smoke_config",
+    "synthesis_kwargs",
+]
 
 EXIT_PREEMPTED = 75  # EX_TEMPFAIL
 
@@ -44,8 +53,11 @@ def exit_on_preemption():
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--data-dir", required=True, help="SpecsDataset directory of the training set")
-    p.add_argument("--val-dir", default=None, help="SpecsDataset directory of the validation set")
+    p.add_argument("--data-dir", default=None, help="SpecsDataset dir (.pt/.npz); default: synthesize on device")
+    p.add_argument("--val-dir", default=None, help="validation SpecsDataset dir")
+    p.add_argument("--dataset-size", type=int, default=1000, help="synthetic dataset size (genereate_dataset.py:62)")
+    p.add_argument("--val-size", type=int, default=200)
+    p.add_argument("--smoke", action="store_true", help="tiny config for a fast end-to-end check")
     p.add_argument("--store-dir", default="checkpoints", help="stage store / checkpoint root")
     p.add_argument("--updates", type=int, default=None, help="override every stage's number of updates")
     p.add_argument("--seed", type=int, default=0)
@@ -94,19 +106,132 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of a few steady-state steps of each stage here")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_synthesis_args(p)
+    p.add_argument(
+        "--dataset-bf16", action="store_true",
+        help="store synthesized dataset spectra in bfloat16 (half the memory; decompressed to f32 per sampled "
+        "batch) — for 20k-scale sets",
+    )
     return p
+
+
+def add_synthesis_args(p: argparse.ArgumentParser) -> None:
+    """The synthesis flags the pipeline shares with ``generate_dataset``
+    (the JAX ``scripts/_common.py:base_parser``)."""
+    p.add_argument(
+        "--wav-dir", default=None,
+        help="directory of 16 kHz wavs to use as the speech corpus for on-device synthesis (the LibriSpeech role, "
+        "genereate_dataset.py:93); default: synthetic source-filter speech",
+    )
+    p.add_argument(
+        "--rt60-range", type=float, nargs=2, default=None, metavar=("LO", "HI"),
+        help="per-sample reverberation-time domain randomization: T60 ~ U(LO, HI) in synthesized data instead of "
+        "the config's fixed value (reference pins T60=0.4, genereate_dataset.py:60)",
+    )
+    p.add_argument(
+        "--radius-range", type=float, nargs=2, default=None, metavar=("LO", "HI"),
+        help="per-sample source-radius geometry augmentation: R ~ U(LO, HI) meters around the receiver instead "
+        "of the config's fixed R=1 (genereate_dataset.py:17); labels stay angular",
+    )
+    p.add_argument(
+        "--snr-range", type=float, nargs=2, default=None, metavar=("LO", "HI"),
+        help="per-sample sensor-noise augmentation: white noise added to the echoed waveform at SNR ~ U(LO, HI) "
+        "dB in synthesized data (the reference's generator is noiseless, genereate_dataset.py:21-31); composes "
+        "with --rt60-range/--radius-range",
+    )
+    p.add_argument(
+        "--snr-clean-prob", type=float, default=0.0, metavar="P",
+        help="with --snr-range: leave each sample CLEAN (no sensor noise) with probability P — a mixed "
+        "clean/noisy curriculum that anchors the noiseless operating point (training with --snr-range alone "
+        "never shows a clean sample and costs clean accuracy, VALIDATION.md run F)",
+    )
+
+
+def smoke_config():
+    """The JAX CLIs' ``--smoke`` geometry: 512-tap RIRs, 0.2 s of audio, 33
+    bins x 100 frames."""
+    from ..data import DatasetConfig
+
+    return DatasetConfig(n_sample=512, audio_samples=3200, num_frames=100, NFFT=64, HOP_LENGTH=32)
+
+
+def synthesis_kwargs(args) -> dict:
+    """``synthesize_batch`` options from the synthesis flags."""
+    kw = {}
+    if args.rt60_range:
+        kw["rt60_range"] = tuple(args.rt60_range)
+    if args.radius_range:
+        kw["radius_range"] = tuple(args.radius_range)
+    if args.snr_range:
+        kw["snr_range"] = tuple(args.snr_range)
+        if args.snr_clean_prob:
+            kw["snr_clean_prob"] = float(args.snr_clean_prob)
+    elif args.snr_clean_prob:
+        raise SystemExit("--snr-clean-prob requires --snr-range")
+    return kw
+
+
+def dataset_seeds(seed: int):
+    """The seeds of the synthesized training and validation sets, derived
+    from ``seed`` as the JAX CLI splits its key into ``k_train`` and
+    ``k_val`` (``scripts/_common.py:288``); streams apart from the stages'
+    (``train.stage_seed``)."""
+    return tuple(int(child.generate_state(1)[0]) for child in np.random.SeedSequence(seed).spawn(2))
+
+
+def load_datasets(args):
+    """The pipeline's dataset config, training set and validation set (or
+    None) from the flags: read from ``--data-dir`` / ``--val-dir``, or
+    synthesized on ``--device`` from ``--seed`` (``--dataset-size`` /
+    ``--val-size`` rows, the synthesis flags, ``--wav-dir`` as the speech,
+    ``--dataset-bf16``), as the JAX ``scripts/_common.py:setup`` does."""
+    import torch
+
+    from ..data import DatasetConfig, SpecsDataset, load_wav_dir, make_dataset
+    from ..utils import resolve_device
+
+    config = smoke_config() if args.smoke else DatasetConfig()
+    if args.smoke:
+        args.dataset_size = min(args.dataset_size, 64)
+        args.val_size = min(args.val_size, 32)
+    if args.data_dir:
+        ds = SpecsDataset(args.data_dir)
+        config = ds.config  # resolved before a wav pool is checked against it
+    synth_train = not args.data_dir
+    synth_val = not args.val_dir and args.val_size > 0
+    synth_kw = synthesis_kwargs(args)
+    pool = None
+    if args.wav_dir:
+        if synth_train or synth_val:
+            pool = load_wav_dir(args.wav_dir, config.audio_samples)
+            print(f"speech corpus: {pool.shape[0]} wavs from {args.wav_dir}", flush=True)
+        else:
+            print("--wav-dir ignored: both --data-dir and --val-dir are set, nothing is synthesized", flush=True)
+    if args.dataset_bf16:
+        synth_kw["store_dtype"] = torch.bfloat16
+    device = resolve_device(args.device)
+
+    def synthesize(seed: int, size: int):
+        generator = torch.Generator(device=device).manual_seed(seed)
+        return make_dataset(generator, size, config, speech_pool=pool, device=device, **synth_kw)
+
+    seed_train, seed_val = dataset_seeds(args.seed)
+    train = ds.load_all() if args.data_dir else synthesize(seed_train, args.dataset_size)
+    if args.val_dir:
+        val = SpecsDataset(args.val_dir).load_all()
+    else:
+        val = synthesize(seed_val, args.val_size) if synth_val else None
+    return config, train, val
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    from ..data import SpecsDataset
     from ..eval import evaluate_joint_location, evaluate_location
     from ..train import JointLocationTask, LocationTask, run_pipeline
 
-    ds = SpecsDataset(args.data_dir)
-    config = ds.config
-    train = ds.load_all()
-    val = SpecsDataset(args.val_dir).load_all() if args.val_dir else None
+    if args.smoke and args.updates is None:
+        args.updates = 20
+    config, train, val = load_datasets(args)
     stages = ("speech", "rir", "echoed", "finetune", "location") + (
         ("location_joint",) if args.joint_location else ()
     )

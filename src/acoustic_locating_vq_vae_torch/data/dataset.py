@@ -1,7 +1,8 @@
 """Disk-backed datasets and batch sampling.
 
 Counterpart of ``acoustic_locating_vq_vae_tpu/data/dataset.py:40-62``,
-``:95-111`` and ``:134-229``: ``save_dataset`` writes a dataset directory and
+``:95-229``: ``save_dataset`` writes a dataset directory,
+``save_dataset_reference_format`` the reference's own ``<i>.pt`` files, and
 ``SpecsDataset`` reads a directory of per-sample files (the
 ``<i>.npz`` files the JAX ``save_dataset`` writes, or the reference's
 ``<i>.pt`` tuples) with its ``dataset_config.npy``, and ``load_all`` stacks
@@ -23,7 +24,7 @@ import torch
 from .config import DatasetConfig
 from .synth import SampleBatch
 
-__all__ = ["SpecsDataset", "sample_without_replacement", "save_dataset"]
+__all__ = ["SpecsDataset", "sample_without_replacement", "save_dataset", "save_dataset_reference_format"]
 
 
 def sample_without_replacement(generator: torch.Generator, n: int, k: int) -> torch.Tensor:
@@ -51,6 +52,26 @@ def save_dataset(root_dir: str, batch: SampleBatch, config: DatasetConfig) -> No
             wiener_est=arrs.wiener_est[i],
             radius=arrs.radius[i],
         )
+    np.save(os.path.join(root_dir, "dataset_config.npy"), config.to_reference_dict())
+
+
+def save_dataset_reference_format(root_dir: str, batch: SampleBatch, config: DatasetConfig) -> None:
+    """Write the reference's on-disk format, one ``<i>.pt`` pickle of the
+    6-tuple per sample (genereate_dataset.py:97-103; theta as a float64 (1,)
+    tensor, fs an int), + ``dataset_config.npy``, so the reference's scripts
+    and :class:`SpecsDataset` read it."""
+    os.makedirs(root_dir, exist_ok=True)
+    arrs = batch.map(lambda a: torch.as_tensor(a).cpu())
+    for i in range(arrs.speech_spec.shape[0]):
+        sample = (
+            arrs.speech_spec[i].clone(),
+            arrs.rir_spec[i].clone(),
+            arrs.echoed_spec[i].clone(),
+            int(arrs.fs[i]),
+            arrs.theta[i : i + 1].to(torch.float64),
+            arrs.wiener_est[i].clone(),
+        )
+        torch.save(sample, os.path.join(root_dir, f"{i}.pt"))
     np.save(os.path.join(root_dir, "dataset_config.npy"), config.to_reference_dict())
 
 

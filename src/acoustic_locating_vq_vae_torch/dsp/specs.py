@@ -1,8 +1,10 @@
-"""Spectrogram-domain feature math on the serving path.
+"""Spectrogram-domain feature math.
 
-Counterpart of ``acoustic_locating_vq_vae_tpu/dsp/specs.py:34-66``: the
-per-batch normalization the reference trainers share (e.g.
-scripts/train_speech.py:63-64) and the source position from an angle.
+Counterpart of ``acoustic_locating_vq_vae_tpu/dsp/specs.py``: the RIR
+spectral ratio and the Wiener estimate of the data pipeline
+(genereate_dataset.py:41-46), the per-batch normalization the reference
+trainers share (e.g. scripts/train_speech.py:63-64) and the source position
+from an angle.
 """
 
 from __future__ import annotations
@@ -11,7 +13,25 @@ from typing import Sequence, Union
 
 import torch
 
-__all__ = ["znorm", "source_coordinates"]
+__all__ = ["rir_spec_ratio", "source_coordinates", "wiener_estimate", "znorm"]
+
+
+def rir_spec_ratio(speech_spec: torch.Tensor, echoed_spec: torch.Tensor) -> torch.Tensor:
+    """Complex spectral ratio ``speech / (echoed + 1e-8)`` divided by its
+    largest magnitude over the last two axes (F, T), so each sample of a
+    (..., F, T) batch is normalized by its own maximum, as the JAX pipeline's
+    ``vmap`` over samples does (genereate_dataset.py:41-42)."""
+    ratio = speech_spec / (echoed_spec + 1e-8)
+    return ratio / torch.amax(torch.abs(ratio), dim=(-2, -1), keepdim=True)
+
+
+def wiener_estimate(speech_spec: torch.Tensor, echoed_spec: torch.Tensor) -> torch.Tensor:
+    """Per-frequency Wiener transfer-function estimate, magnitude squared:
+    ``|sum_t(echoed * conj(speech)) / (sum_t |speech|^2 + 1e-8)|^2``
+    (genereate_dataset.py:44-46). (..., F, T) -> (..., F)."""
+    num = torch.sum(echoed_spec * torch.conj(speech_spec), dim=-1)
+    den = torch.sum(speech_spec * torch.conj(speech_spec), dim=-1) + 1e-8
+    return torch.abs(num / den) ** 2
 
 
 def znorm(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> torch.Tensor:

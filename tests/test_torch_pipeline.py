@@ -217,7 +217,7 @@ def test_real_sigterm_to_the_cli_then_resume(tmp_path):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     base = [sys.executable, "-u", "-m", "acoustic_locating_vq_vae_torch.cli.run_pipeline", "--data-dir", str(data),
             "--store-dir", str(tmp_path / "store"), "--device", "cpu", "--width-scale", str(WS), "--log-every", "5",
-            "--seed", "3"]
+            "--seed", "3", "--val-size", "0"]
     proc = subprocess.Popen(base + ["--updates", "100000"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, env=env)
     try:
