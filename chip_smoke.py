@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1, 2 and 5 and the kernels' timings only
     python3 chip_smoke.py --converge  # phase 1, then the speech and RIR stages to a known loss only
+    python3 chip_smoke.py --otf       # phases 1 and 12 only (--full-bank: run K's whole 1024-angle bank)
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -86,7 +87,20 @@ nothing of JAX. Phases, one line each (more for detail):
    and the timings: synthesize_batch in samples/s and generate_rir_batch in
    RIRs/s at B = 64 (medians of 10, peak memory, the RIR by chunk size), a
    profiler breakdown of one batch, and make_dataset of the CLI's default
-   1000 + 200 rows.
+   1000 + 200 rows;
+12. on-the-fly training with run K's options (``otf_phase``; full width and
+   geometry): run K's RIR bank (OTF_BANK_THETA angles, or 1024 with
+   --full-bank, x 8 T60s x 8 radii) built and timed, three cells bitwise
+   equal to generate_rir_batch on the card and rows within SYNTH_LIMITS of
+   float64; a pure-bank and a mixed batch whose bank samples carry their
+   gathered cell's angle and radius and match exact synthesis at those
+   labels; every stage's train step resident and on the fly (the joint stage
+   also from the bank and mixed), the synthesis's share of the step; and the
+   recipe through the CLI (--on-the-fly --joint-location --predict-radius
+   --bank-pretrain-updates, run K's ranges, a small bank): the hard switch
+   and --polish-bank-prob 0.25 in this process with their launches, then a
+   real SIGTERM in the bank leg and one in the polish leg, each followed by
+   --resume, ending bitwise equal to the uninterrupted run.
 
 ``--converge`` trains the speech and RIR VQ-VAEs at full width for 1,500
 updates each on 256 + 64 synthesized rows and prints the recon of the first
@@ -177,6 +191,19 @@ SYNTH_DATASET_ROWS = (1000, 200)  # the CLI's default training and validation se
 CONVERGE = "--converge"
 CONVERGE_UPDATES, CONVERGE_SEED = 1500, 21
 CONVERGE_ROWS = {"train": 256, "val": 64}
+# phase 12: on-the-fly training with run K's options (scripts/run_runK.sh) at full width and geometry
+OTF = "--otf"  # `python3 chip_smoke.py --otf`: phase 1 and phase 12 only
+FULL_BANK = "--full-bank"  # phase 12 builds run K's whole 1024-angle bank (about 140 s) instead of OTF_BANK_THETA
+OTF_BANK_THETA = 128  # run K's 1024 angles cut to fit the script's time; its 8 T60s x 8 radii stay
+OTF_RANGES = {"rt60_range": (0.12, 0.75), "radius_range": (0.45, 1.45)}
+OTF_NOISE = {"snr_range": (0.0, 30.0), "snr_clean_prob": 0.25}
+OTF_GRID = 8  # T60s and radii of run K's bank, np.linspace over the ranges
+OTF_SEED, OTF_LABEL_B = 12, 16
+OTF_WIDTH = 1.0  # width_scale of phase 12's stages
+OTF_CONFIG = None  # None: the dataset's full geometry (201 x 500, 6400-tap RIRs)
+OTF_CLI_EXTRA = ()  # flags added to every CLI run of phase 12
+# the recipe through the CLI: RECIPE_UPDATES a stage, the joint stage's first RECIPE_BANK from a small bank
+RECIPE_UPDATES, RECIPE_BANK, RECIPE_BANK_SIZE = 16, 8, (16, 2, 2)
 # `python3 chip_smoke.py --kernels` runs only what needs no model: the build,
 # the kernels against their plain versions (phases 2 and 5) and their timings
 # (of phases 4 and 7); a short run for working on a kernel
@@ -1188,12 +1215,48 @@ def pipeline_argv(store: Path, *extra) -> list:
             "--keep-checkpoints", "1", "--width-scale", str(PIPE_WIDTH), "--device", DEVICE, *extra]
 
 
-def pipeline_cli(store: Path, log: Path, *extra):
-    """Start the pipeline CLI with phase 10's configuration on the card, its output into ``log``."""
-    cmd = [sys.executable, "-u", "-m", "acoustic_locating_vq_vae_torch.cli.run_pipeline", *pipeline_argv(store, *extra)]
+def pipeline_cli(argv: list, log: Path):
+    """Start the pipeline CLI with ``argv`` (phase 10's ``pipeline_argv``, phase 12's ``recipe_argv``), its
+    output into ``log``."""
+    cmd = [sys.executable, "-u", "-m", "acoustic_locating_vq_vae_torch.cli.run_pipeline", *argv]
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
     with open(log, "w") as out:
         return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+
+
+def terminate_when(argv: list, log: Path, store: Path, ready, what: str):
+    """Run the pipeline CLI with ``argv``, and send it a real SIGTERM once ``ready`` holds of the tags in
+    ``store``'s manifest. Returns (exit code, ms from the signal to the exit, the log)."""
+    proc = pipeline_cli(argv, log)
+    try:
+        deadline = time.monotonic() + 600
+        while not ready(manifest_tags(store)):
+            if proc.poll() is not None:
+                raise AssertionError(f"{what} exited {proc.returncode} before the signal:\n"
+                                     + log.read_text(encoding="utf-8")[-3000:])
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what} never reached the point of the signal")
+            time.sleep(0.005)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        return rc, (time.perf_counter() - t_sig) * 1e3, log.read_text(encoding="utf-8")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_cli(argv: list, log: Path):
+    """Run the pipeline CLI with ``argv`` to its end; returns (exit code, the log)."""
+    proc = pipeline_cli(argv, log)
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, log.read_text(encoding="utf-8")
 
 
 def manifest_tags(store: Path) -> set:
@@ -1339,28 +1402,9 @@ def pipeline_phase(dev, counters, card: str) -> None:
               f"{kernel_events} of them kernels on the card")
 
     # ---- run B: the CLI in a subprocess, a real SIGTERM in the echoed stage
-    proc = pipeline_cli(store_b, root / "run_b.log")
-    try:
-        deadline = time.monotonic() + 600
-        while True:
-            if proc.poll() is not None:
-                raise AssertionError(f"run B exited {proc.returncode} before the echoed stage's first checkpoint:\n"
-                                     + (root / "run_b.log").read_text(encoding="utf-8")[-3000:])
-            tags = manifest_tags(store_b)
-            if any(re.fullmatch("echoed_[0-9]+", t) for t in tags) and "echoed" not in tags:
-                break
-            if time.monotonic() > deadline:
-                raise AssertionError("run B never reached a periodic checkpoint of the echoed stage")
-            time.sleep(0.005)
-        t_sig = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=300)
-        sigterm_ms = (time.perf_counter() - t_sig) * 1e3
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    log_b = (root / "run_b.log").read_text(encoding="utf-8")
+    rc, sigterm_ms, log_b = terminate_when(
+        pipeline_argv(store_b), root / "run_b.log", store_b,
+        lambda tags: any(re.fullmatch("echoed_[0-9]+", t) for t in tags) and "echoed" not in tags, "run B")
     tags = manifest_tags(store_b)
     echoed_tags = sorted(t for t in tags if re.fullmatch("echoed_[0-9]+", t))
     if rc != 75 or "[preempted]" not in log_b or "echoed" in tags or len(echoed_tags) != 1 \
@@ -1370,14 +1414,7 @@ def pipeline_phase(dev, counters, card: str) -> None:
     preempted_at = int(echoed_tags[0].split("_")[1])
 
     # ---- run C: the CLI with --resume
-    proc = pipeline_cli(store_b, root / "run_c.log", "--resume")
-    try:
-        rc = proc.wait(timeout=900)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    log_c = (root / "run_c.log").read_text(encoding="utf-8")
+    rc, log_c = run_cli(pipeline_argv(store_b, "--resume"), root / "run_c.log")
     expected = ["[pipeline] stage 'speech' complete in store — skipping",
                 "[pipeline] stage 'rir' complete in store — skipping", f"[echoed] resumed at step {preempted_at}",
                 "joint location evaluation"]
@@ -1634,6 +1671,294 @@ def synthesis_phase(dev, card: str) -> None:
         f"{time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# ------------------------------------------------------------------ phase 12: on-the-fly training
+
+
+def otf_grids():
+    """Run K's T60 and radius grids (np.linspace over its ranges, OTF_GRID each)."""
+    import numpy as np
+
+    return (np.linspace(*OTF_RANGES["rt60_range"], OTF_GRID), np.linspace(*OTF_RANGES["radius_range"], OTF_GRID))
+
+
+def bank_phase(dev, cfg, card: str):
+    """Phase 12, the bank: run K's bank (OTF_BANK_THETA angles, or 1024 with --full-bank; 8 T60s x 8 radii)
+    built and timed on the card; rows of three cells bitwise equal to generate_rir_batch on the card at the
+    same geometry and batch of angles, two rows of each within SYNTH_LIMITS of the port in float64 on the
+    CPU. Returns the bank."""
+    import warnings
+
+    import torch
+    from acoustic_locating_vq_vae_torch import data
+    from acoustic_locating_vq_vae_torch.dsp import generate_rir_batch, source_coordinates
+
+    n_theta = 1024 if FULL_BANK in sys.argv[1:] else OTF_BANK_THETA
+    t60s, radii = otf_grids()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # run K's 14.3 cm radius grid draws the off-grid advisory
+        bank = data.make_rir_bank(cfg, n_theta, rt60s=t60s, radii=radii, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    n_rirs = OTF_GRID * OTF_GRID * n_theta
+    if tuple(bank.shape) != (OTF_GRID, OTF_GRID, n_theta, cfg.n_sample) or not bool(torch.isfinite(bank).all()):
+        raise AssertionError(f"bank of shape {tuple(bank.shape)}, want {(OTF_GRID, OTF_GRID, n_theta, cfg.n_sample)}"
+                             ", all finite")
+    thetas = torch.from_numpy(data.bank_thetas(n_theta)).to(dev)
+    receiver = torch.tensor(cfg.receiver_position).to(dev)
+    room = torch.tensor(cfg.room_dimensions).to(dev)
+    kw = dict(room=tuple(cfg.room_dimensions), nsample=cfg.n_sample, fs=float(cfg.fs), c=cfg.c, chunk=8192)
+    rows = slice(0, min(256, n_theta))  # make_rir_bank's first batch of angles
+    worst = 0.0
+    for i, j in ((0, 0), (OTF_GRID - 1, OTF_GRID - 1), (3, 5)):
+        r = float(radii[j])
+        src = source_coordinates(thetas, receiver, room, radius=r, z_loc=cfg.Z_LOC_SOURCE)
+        sbox, rbox = data.geometry_boxes(cfg, r)
+        h = generate_rir_batch(src[rows], receiver, rt60=float(t60s[i]), source_box=sbox, receiver_box=rbox, **kw)
+        if not torch.equal(bank[i, j, rows], h):
+            raise AssertionError(f"bank cell ({i}, {j}) is not bitwise generate_rir_batch on the card")
+        ref = generate_rir_batch(src[:2].double().cpu(), receiver.cpu(), rt60=float(t60s[i]), source_box=sbox,
+                                 receiver_box=rbox, **kw)
+        worst = max(worst, max_rel(bank[i, j, :2], ref))
+    if worst > SYNTH_LIMITS["rir"]:
+        raise AssertionError(f"bank rows {worst:.3g} of their max from float64, limit {SYNTH_LIMITS['rir']}")
+    phase(12, f"RIR bank of run K's grid, {n_theta} angles x {OTF_GRID} T60s x {OTF_GRID} radii = {n_rirs} RIRs, "
+              f"{bank.numel() * 4 / 1e9:.3f} GB: built in {build_s:.2f} s ({n_rirs / build_s:.1f} RIRs/s; run K's "
+              f"1024 angles extrapolate to {build_s * 1024 / n_theta:.1f} s), peak {peak_gb:.3f} GB above what was "
+              f"held; three cells bitwise generate_rir_batch on the card, rows {worst:.3g} of their max from the "
+              f"port in float64 on the CPU (limit {SYNTH_LIMITS['rir']}) ({card})")
+    return bank
+
+
+def label_phase(dev, cfg, bank) -> None:
+    """Phase 12, labels: a pure-bank and a mixed (bank_mix_prob 0.5) batch of OTF_LABEL_B on the card from run
+    K's bank and options: every bank sample's labels are its gathered cell's angle and radius exactly; those
+    samples synthesized exactly at their labels (given angle and radius, the cell's T60) give RIRs, spectra
+    and Wiener estimates within SYNTH_LIMITS of the bank's (rir_spec with each sample's scale divided out)."""
+    import torch
+    from acoustic_locating_vq_vae_torch import data
+
+    t60s, radii = otf_grids()
+    t60s, radii = torch.tensor(t60s, dtype=torch.float32), torch.tensor(radii, dtype=torch.float32)
+    thetas = torch.from_numpy(data.bank_thetas(bank.shape[2]))
+    g = torch.Generator(dev).manual_seed(OTF_SEED)
+    report = []
+    for name, kw in (("pure bank", OTF_NOISE), ("mixed 0.5", dict(OTF_RANGES, **OTF_NOISE, bank_mix_prob=0.5))):
+        draws = data.draw_synthesis(g, OTF_LABEL_B, cfg, rir_bank=bank, rir_bank_radii=radii, **kw)
+        got = data.synthesize_from_draws(draws, cfg, rir_bank=bank)
+        use = (torch.ones(OTF_LABEL_B, dtype=torch.bool) if draws.use_bank is None else draws.use_bank).cpu()
+        t, r, th = draws.bank_index.cpu().unbind(1)
+        if not 0 < int(use.sum()) or not torch.equal(draws.theta.cpu()[use], thetas[th[use]]) \
+                or not torch.equal(draws.radius.cpu()[use], radii[r[use]]):
+            raise AssertionError(f"{name}: a bank sample's labels are not its gathered cell's angle and radius")
+        exact = draws._replace(rt60=t60s.to(dev)[draws.bank_index[:, 0]], bank_index=None, use_bank=None,
+                               r_hi=float(radii.max()))
+        again = data.synthesize_from_draws(exact, cfg)
+        gathered = bank[tuple(draws.bank_index.unbind(1))]
+        errs = {"rir": max_rel(gathered[use], data.rirs_from_draws(exact, cfg)[use])}
+        for field in ("speech_spec", "echoed_spec", "wiener_est"):
+            errs[field] = max_rel(getattr(got, field)[use], getattr(again, field)[use])
+        errs["rir_spec"] = ratio_shape_err(got.rir_spec[use], again.rir_spec[use], again.echoed_spec[use])[0]
+        bad = {k: v for k, v in errs.items() if v > SYNTH_LIMITS[k]}
+        if bad:
+            raise AssertionError(f"{name}: bank samples against exact synthesis at their labels {bad}, limits "
+                                 f"{SYNTH_LIMITS}")
+        report.append(f"{name}: {int(use.sum())} of {OTF_LABEL_B} samples from the bank, "
+                      + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    phase(12, "labels are the gathered cell's angle and radius, bitwise; the bank samples synthesized exactly at "
+              "their labels against the bank's, max |difference| / max: " + "; ".join(report))
+
+
+def otf_profile(tr, steps: int = 3):
+    """torch.profiler over ``steps`` on-the-fly steps, the synthesis in a ``record_function`` range: (host ms a
+    step, card busy ms a step, the synthesis's card ms a step, or None if the profiler attributed none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tr.step(tr.otf_batch())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with record_function("otf_synthesis"):
+                batch = tr.otf_batch()
+            tr.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    synth_us = sum(e.device_time_total for e in prof.events()
+                   if e.name == "otf_synthesis" and e.device_type == DeviceType.CPU)
+    return wall_ms / steps, busy_us / steps / 1e3, (synth_us / steps / 1e3 if synth_us > 0 else None)
+
+
+def otf_timings(dev, cfg, bank, counters, card: str) -> None:
+    """Phase 12, step times: each stage's train step at its own batch size on the card, resident (a synthesized
+    set of 2 B rows, sampled) and on the fly with run K's exact options, and for the joint stage also from the
+    bank and mixed 0.5; medians of 10 after 3 warm-ups, host clock between synchronises, on one trainer of the
+    seed of phase 9; the synthesis alone, its share of the step by the host clock and by a profile's card
+    time; the kernels' launches of the timed on-the-fly steps."""
+    import torch
+    from acoustic_locating_vq_vae_torch import data
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    _, radii = otf_grids()
+    exact = dict(OTF_RANGES, **OTF_NOISE)
+    bank_kw = dict(OTF_NOISE, rir_bank=bank, rir_bank_radii=radii.astype("float32"))
+    runs = (("speech", "speech", exact), ("rir", "rir", exact), ("echoed", "echoed", exact),
+            ("finetune", "finetune", exact), ("location", "location", exact), ("joint", "location_joint", exact),
+            ("joint bank", "location_joint", bank_kw), ("joint mixed 0.5", "location_joint",
+                                                        dict(bank_kw, **OTF_RANGES, bank_mix_prob=0.5)))
+    composite = composite_weights(make_stage_task("echoed", config=cfg, width_scale=OTF_WIDTH),
+                                  torch.Generator().manual_seed(STAGE_SEED))
+    lines = []
+    for label, stage, synth_kw in runs:
+        task = make_stage_task(stage, config=cfg, width_scale=OTF_WIDTH)
+        tr = Trainer(task, device=dev, seed=9, verbose=False, on_the_fly=True, synth_kwargs=synth_kw,
+                     composite_params=composite if stage == "location" else None)
+        start_stage(tr, composite, torch.Generator().manual_seed(9))
+        resident = data.make_dataset(torch.Generator(dev).manual_seed(9), 2 * task.batch_size, cfg, device=dev,
+                                     **exact)
+        res_ms, _ = step_times_ms(tr, resident)
+        del resident
+        for c in counters:
+            c.launches = 0
+        with count_by_shape():
+            otf_ms, times = sync_times_ms(lambda: tr.step(tr.otf_batch()), steps=10, warmup=3)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        if launches["nearest_indices_cuda"] < 13:
+            raise AssertionError(f"{label}: the on-the-fly steps launched {launches}")
+        synth_ms, _ = sync_times_ms(tr.otf_batch, steps=10, warmup=1)
+        wall, busy, synth_card = otf_profile(tr)
+        card_share = "not attributed" if synth_card is None else f"{synth_card:.3f} ms, {synth_card / busy:.1%}"
+        lines.append(f"{label} B={task.batch_size}: resident {res_ms:.3f} ms, on the fly {otf_ms:.3f} ms (min "
+                     f"{min(times):.3f}, max {max(times):.3f}; {otf_ms / res_ms:.2f}x), synthesis alone "
+                     f"{synth_ms:.3f} ms ({synth_ms / otf_ms:.1%} of the step by the host clock); profiled: "
+                     f"{wall:.3f} ms a step, card busy {busy:.3f} ms ({busy / wall:.1%}), synthesis {card_share}; "
+                     f"launches over 13 steps {launches}")
+        del tr
+        torch.cuda.empty_cache()
+    phase(12, f"train steps at full width, resident against on the fly ({card}): " + " | ".join(lines))
+
+
+def recipe_argv(store: Path, *extra) -> list:
+    """Phase 12's pipeline CLI: run K's first and second commands in one, at full width on the card, with a
+    small bank, RECIPE_UPDATES a stage and the joint stage's first RECIPE_BANK from the bank."""
+    n_theta, n_t60, n_r = RECIPE_BANK_SIZE
+    return ["--on-the-fly", "--val-size", "16", "--store-dir", str(store), "--updates", str(RECIPE_UPDATES), "--seed",
+            str(PIPE_SEED), "--preset", "fixed", "--joint-location", "--predict-radius", "--tail-weight", "1.0",
+            "--rt60-range", *map(str, OTF_RANGES["rt60_range"]), "--radius-range", *map(str, OTF_RANGES["radius_range"]),
+            "--snr-range", *map(str, OTF_NOISE["snr_range"]), "--snr-clean-prob", str(OTF_NOISE["snr_clean_prob"]),
+            "--rir-bank", str(n_theta), "--rir-bank-rt60s", str(n_t60), "--rir-bank-radii", str(n_r),
+            "--bank-pretrain-updates", str(RECIPE_BANK), "--ckpt-every", "2", "--keep-checkpoints", "1",
+            "--width-scale", str(OTF_WIDTH), "--device", DEVICE, *OTF_CLI_EXTRA, *extra]
+
+
+def recipe_phase(counters, card: str) -> None:
+    """Phase 12, the recipe through the CLI: run A (the hard bank->exact switch) and run A' (--polish-bank-prob
+    0.25) in this process through the CLI's main, their launches counted; then run B, A's flags in a
+    subprocess, sent a real SIGTERM in the joint stage's bank leg, run C with --resume, sent a SIGTERM in the
+    polish leg, and run D with --resume: every final bitwise equal to run A's. Checks the finals, the pinned leg
+    boundary, the exits and the resume lines."""
+    import io
+
+    import torch
+    from acoustic_locating_vq_vae_torch.cli import run_pipeline as cli
+    from acoustic_locating_vq_vae_torch.utils import StageStore
+
+    root = PIPE_ROOT / "recipe"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    stages = ("speech", "rir", "echoed", "finetune", "location", "location_joint")
+    joint_tag = lambda t: int(t.rsplit("_", 1)[1]) if re.fullmatch("location_joint_[0-9]+", t) else None
+    runs = {}
+    for name, extra in (("A", ()), ("A'", ("--polish-bank-prob", "0.25"))):
+        store = root / f"store_{name}"
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with count_by_shape(), contextlib.redirect_stdout(out):
+            cli.main(recipe_argv(store, *extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        log = out.getvalue()
+        manifest = StageStore(str(store)).stages()
+        if any(manifest.get(s, {}).get("step") != RECIPE_UPDATES for s in stages) \
+                or f"bank pretraining done at step {RECIPE_BANK}" not in log or "joint location evaluation" not in log \
+                or launches["nearest_indices_cuda"] < 1 or launches["codebook_grad_cuda"] < 1:
+            raise AssertionError(f"run {name}: finals {({s: manifest.get(s, {}).get('step') for s in stages})}, "
+                                 f"launches {launches}:\n{log[-3000:]}")
+        joint_eval = json.loads(log.split("joint location evaluation:", 1)[1].split("\n}", 1)[0] + "}")
+        runs[name] = (store, wall, launches, joint_eval)
+    phase(12, "the recipe through the CLI's main in this process, --on-the-fly --joint-location --predict-radius, "
+              f"run K's ranges and noise, a {'x'.join(map(str, RECIPE_BANK_SIZE))} bank, {RECIPE_UPDATES} updates "
+              f"a stage, the joint stage's first {RECIPE_BANK} from the bank: " + "; ".join(
+                  f"run {n} {'hard switch' if n == 'A' else 'polish-bank-prob 0.25'}: six finals at step "
+                  f"{RECIPE_UPDATES}, {wall:.1f} s, launches {launches}, joint evaluation median "
+                  f"{ev['median_abs_radians']:.4f} rad, radius RMSE {ev['rmse_radius_m']:.4f} m"
+                  for n, (_, wall, launches, ev) in runs.items()) + f" ({card})")
+
+    # ---- runs B, C, D: A's flags, SIGTERM in the bank leg, then in the polish leg, then to the end
+    store = root / "store_B"
+    final = "location_joint"
+    rc, ms_b, log_b = terminate_when(
+        recipe_argv(store), root / "run_b.log", store,
+        lambda tags: any(2 <= (joint_tag(t) or 0) < RECIPE_BANK for t in tags) and final not in tags, "run B")
+    at_b = [joint_tag(t) for t in manifest_tags(store) if joint_tag(t)]
+    if rc != 75 or "[preempted]" not in log_b or len(at_b) != 1 or not at_b[0] < RECIPE_BANK:
+        raise AssertionError(f"run B: exit {rc}, joint tags {at_b}; want exit 75 inside the bank leg:\n{log_b[-3000:]}")
+    rc, ms_c, log_c = terminate_when(
+        recipe_argv(store, "--resume"), root / "run_c.log", store,
+        lambda tags: any((joint_tag(t) or 0) >= RECIPE_BANK + 2 for t in tags) and final not in tags, "run C")
+    at_c = [joint_tag(t) for t in manifest_tags(store) if joint_tag(t)]
+    want_c = [f"[location_joint] resumed at step {at_b[0]}", f"bank pretraining done at step {RECIPE_BANK}"]
+    if rc != 75 or any(w not in log_c for w in want_c) or len(at_c) != 1 or not at_c[0] > RECIPE_BANK:
+        raise AssertionError(f"run C: exit {rc}, joint tags {at_c}; want exit 75 inside the polish leg after "
+                             f"{want_c}:\n{log_c[-3000:]}")
+    rc, log_d = run_cli(recipe_argv(store, "--resume"), root / "run_d.log")
+    want_d = [f"[pipeline] stage '{s}' complete in store — skipping" for s in stages[:5]] + [
+        f"[location_joint] resumed at step {at_c[0]}", "joint location evaluation"]
+    missing = [w for w in want_d if w not in log_d]
+    if rc != 0 or missing:
+        raise AssertionError(f"run D: exit {rc}, missing {missing}:\n{log_d[-3000:]}")
+    a, d = StageStore(str(runs["A"][0])), StageStore(str(store))
+    for s in stages:
+        assert_bitwise(d.load_stage(s), a.load_stage(s), f"run D's final {s} against run A's")
+    phase(12, f"run B, the CLI with run A's flags: SIGTERM in the joint stage's bank leg, exit 75 {ms_b:.1f} ms after "
+              f"the signal at step {at_b[0]}; run C, --resume: resumed at step {at_b[0]}, pinned the boundary at "
+              f"{RECIPE_BANK}, SIGTERM in the polish leg, exit 75 {ms_c:.1f} ms after the signal at step {at_c[0]}; "
+              f"run D, --resume: five stages skipped, resumed at step {at_c[0]}; every stage's final (weights, Adam, "
+              f"step, all three generators) bitwise equal to run A's")
+    shutil.rmtree(root)
+
+
+def otf_phase(dev, counters, card: str) -> None:
+    """Phase 12: on-the-fly training with run K's options at full width and geometry: the bank, the labels, the
+    step times, and the recipe through the CLI with preemption and resume in each leg."""
+    import torch
+    from acoustic_locating_vq_vae_torch import data
+
+    t_phase = time.perf_counter()
+    cfg = OTF_CONFIG or data.DatasetConfig()
+    bank = bank_phase(dev, cfg, card)
+    label_phase(dev, cfg, bank)
+    otf_timings(dev, cfg, bank, counters, card)
+    del bank
+    torch.cuda.empty_cache()
+    recipe_phase(counters, card)
+    phase(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+
 # ------------------------------------------------------------------ --converge: speech and RIR stages to a known loss
 
 
@@ -1726,6 +2051,11 @@ def main() -> int:
 
     if CONVERGE in sys.argv[1:]:
         converge_phase(dev, card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if OTF in sys.argv[1:]:
+        otf_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
@@ -1943,6 +2273,9 @@ def main() -> int:
 
     # ---- phase 11: synthesis at the full geometry, card vs CPU float64, options, timings
     synthesis_phase(dev, card)
+
+    # ---- phase 12: on-the-fly training with run K's options: the bank, labels, step times, the recipe
+    otf_phase(dev, counters, card)
 
     # one entry for each kernel and shape that was timed and that the main path ran, with the launches it
     # made at that shape; every kernel of the path has an entry

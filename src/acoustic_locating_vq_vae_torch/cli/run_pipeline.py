@@ -8,7 +8,8 @@ then evaluate the location models on the validation set.
 
 Counterpart of the JAX package's ``scripts/run_pipeline.py`` and of the parts
 of ``scripts/_common.py`` that apply here (``base_parser``'s flags, ``setup``'s
-data, ``exit_on_preemption``). Without ``--data-dir`` the training set is
+data and RIR bank, ``trainer_kwargs``, ``recipe_kwargs``,
+``exit_on_preemption``). Without ``--data-dir`` the training set is
 synthesized on the device from ``--seed``, and without ``--val-dir`` the
 validation set too (``--val-size 0``: none); a dataset directory is a
 ``SpecsDataset`` directory (``cli.generate_dataset``, ``data.save_dataset``
@@ -17,6 +18,24 @@ synthesizes the same sets, so ``--resume`` continues on the same data.
 SIGTERM during a stage saves a checkpoint and exits with 75 (EX_TEMPFAIL);
 rerun with ``--resume`` to skip the completed stages and continue the
 interrupted one from its checkpoint.
+
+``--on-the-fly`` synthesizes every training batch inside the step, with the
+synthesis flags (no training set is made or read; the validation set still
+is), and ``--rir-bank N`` builds a bank of N angles on the device (times
+``--rir-bank-rt60s`` T60s over ``--rt60-range`` and ``--rir-bank-radii``
+radii over ``--radius-range``, which the bank's axes then replace) that the
+synthesized sets and batches draw from, as the JAX CLI does: every
+on-the-fly stage then draws from it. ``--joint-location
+--bank-pretrain-updates N`` trains the joint stage N updates from the bank
+and polishes the rest with exact synthesis over the ranges
+(``--polish-bank-prob P``: a mixed polish). Run K's recipe
+(scripts/run_runK.sh), stages 1-5 exact and the joint stage bank then
+exact, is two commands on one store: the first without ``--rir-bank`` and
+``--joint-location``, the second the same with ``--resume
+--joint-location --predict-radius --tail-weight 1.0 --rir-bank 1024
+--rir-bank-rt60s 8 --rir-bank-radii 8 --bank-pretrain-updates 350000
+--updates 400000``; one command with all of it trains stages 1-5 from the
+bank too. ``--librispeech-dir`` is not ported.
 """
 
 from __future__ import annotations
@@ -29,8 +48,8 @@ import sys
 import numpy as np
 
 __all__ = [
-    "add_synthesis_args", "build_parser", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "smoke_config",
-    "synthesis_kwargs",
+    "add_synthesis_args", "build_parser", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
+    "recipe_kwargs", "smoke_config", "synthesis_kwargs",
 ]
 
 EXIT_PREEMPTED = 75  # EX_TEMPFAIL
@@ -106,7 +125,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of a few steady-state steps of each stage here")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--on-the-fly", action="store_true",
+        help="synthesize a fresh training batch inside every step (infinite data; no training dataset needed)",
+    )
     add_synthesis_args(p)
+    p.add_argument(
+        "--rir-bank", type=int, default=0, metavar="N_THETA",
+        help="precompute an N_THETA-angle RIR bank once and draw per-sample RIRs from it (grid labels; spacing "
+        "2pi/N) instead of running image-source synthesis per sample — makes --on-the-fly steps nearly RIR-free. "
+        "Combined with --rt60-range the bank gets a T60 grid axis (--rir-bank-rt60s values spanning the range)",
+    )
+    p.add_argument("--rir-bank-rt60s", type=int, default=8,
+                   help="T60 grid size for a reverberation-randomized RIR bank (used when --rir-bank and "
+                   "--rt60-range are both set)")
+    p.add_argument(
+        "--rir-bank-radii", type=int, default=8,
+        help="source-radius grid size for a geometry-randomized RIR bank (used when --rir-bank and --radius-range "
+        "are both set; radius labels are then drawn on the grid). Keep the grid spacing within ~5 cm: coarser "
+        "grids localize ON the grid but degrade centimeters off it at near range (VALIDATION.md run G); "
+        "alternatively finish with an exact-synthesis leg (run H)",
+    )
+    p.add_argument(
+        "--bank-pretrain-updates", type=int, default=0, metavar="N",
+        help="(--on-the-fly --rir-bank, --joint-location) the validated production recipe as ONE command "
+        "(VALIDATION.md run H): train the joint stage's first N updates drawing from the RIR bank, then drop the "
+        "bank and polish the remaining updates with exact per-sample image-source synthesis (continuous "
+        "rt60/radius randomization restored)",
+    )
+    p.add_argument(
+        "--polish-bank-prob", type=float, default=0.0, metavar="P",
+        help="(--bank-pretrain-updates) soften the bank->exact leg boundary: each polish-leg sample draws from the "
+        "RIR bank with probability P (geometry snapped to the bank grid, labels matching) and pays exact "
+        "synthesis otherwise. 0 (default) = the validated hard switch",
+    )
     p.add_argument(
         "--dataset-bf16", action="store_true",
         help="store synthesized dataset spectra in bfloat16 (half the memory; decompressed to f32 per sampled "
@@ -184,10 +236,14 @@ def load_datasets(args):
     None) from the flags: read from ``--data-dir`` / ``--val-dir``, or
     synthesized on ``--device`` from ``--seed`` (``--dataset-size`` /
     ``--val-size`` rows, the synthesis flags, ``--wav-dir`` as the speech,
-    ``--dataset-bf16``), as the JAX ``scripts/_common.py:setup`` does."""
+    ``--dataset-bf16``), as the JAX ``scripts/_common.py:setup`` does; with
+    ``--rir-bank`` the bank is built first and the synthesized sets draw from
+    it. Under ``--on-the-fly`` no training set is made or read (None). Keeps
+    the synthesis options, the bank and the speech pool on ``args`` for
+    :func:`otf_kwargs` and :func:`recipe_kwargs`."""
     import torch
 
-    from ..data import DatasetConfig, SpecsDataset, load_wav_dir, make_dataset
+    from ..data import DatasetConfig, SpecsDataset, load_wav_dir, make_dataset, make_rir_bank
     from ..utils import resolve_device
 
     config = smoke_config() if args.smoke else DatasetConfig()
@@ -197,26 +253,46 @@ def load_datasets(args):
     if args.data_dir:
         ds = SpecsDataset(args.data_dir)
         config = ds.config  # resolved before a wav pool is checked against it
-    synth_train = not args.data_dir
+    synth_train = not args.data_dir and not args.on_the_fly
     synth_val = not args.val_dir and args.val_size > 0
     synth_kw = synthesis_kwargs(args)
     pool = None
     if args.wav_dir:
-        if synth_train or synth_val:
+        if synth_train or synth_val or args.on_the_fly:
             pool = load_wav_dir(args.wav_dir, config.audio_samples)
             print(f"speech corpus: {pool.shape[0]} wavs from {args.wav_dir}", flush=True)
         else:
             print("--wav-dir ignored: both --data-dir and --val-dir are set, nothing is synthesized", flush=True)
+    device = resolve_device(args.device)
+    # the continuous ranges before the bank's axes replace them: the exact polish of --bank-pretrain-updates
+    exact_kw = dict(synth_kw)
+    if args.rir_bank and not (synth_train or synth_val or args.on_the_fly):
+        print("--rir-bank ignored: dataset comes from --data-dir/--val-dir and --on-the-fly is off, so nothing "
+              "synthesizes from the bank", flush=True)
+    elif args.rir_bank:
+        rt60s = radii = None
+        if args.rt60_range:
+            rt60s = np.linspace(args.rt60_range[0], args.rt60_range[1], args.rir_bank_rt60s)
+            synth_kw.pop("rt60_range")  # the bank's T60 axis replaces it
+        if args.radius_range:
+            radii = np.linspace(args.radius_range[0], args.radius_range[1], args.rir_bank_radii)
+            synth_kw.pop("radius_range")  # the bank's radius axis replaces it
+            synth_kw["rir_bank_radii"] = radii.astype(np.float32)
+        print(f"building RIR bank: {args.rir_bank} angles" + (f" x {len(rt60s)} T60s" if rt60s is not None else "")
+              + (f" x {len(radii)} radii" if radii is not None else ""), flush=True)
+        synth_kw["rir_bank"] = make_rir_bank(config, n_theta=args.rir_bank, rt60s=rt60s, radii=radii, device=device)
+    args.synth_kwargs, args.exact_synth_kwargs, args.speech_pool = dict(synth_kw), exact_kw, pool
     if args.dataset_bf16:
         synth_kw["store_dtype"] = torch.bfloat16
-    device = resolve_device(args.device)
 
     def synthesize(seed: int, size: int):
         generator = torch.Generator(device=device).manual_seed(seed)
         return make_dataset(generator, size, config, speech_pool=pool, device=device, **synth_kw)
 
     seed_train, seed_val = dataset_seeds(args.seed)
-    train = ds.load_all() if args.data_dir else synthesize(seed_train, args.dataset_size)
+    train = None
+    if not args.on_the_fly:
+        train = ds.load_all() if args.data_dir else synthesize(seed_train, args.dataset_size)
     if args.val_dir:
         val = SpecsDataset(args.val_dir).load_all()
     else:
@@ -224,14 +300,45 @@ def load_datasets(args):
     return config, train, val
 
 
+def otf_kwargs(args) -> dict:
+    """The trainer options of ``--on-the-fly`` after :func:`load_datasets`
+    (the JAX ``scripts/_common.py:trainer_kwargs``): the synthesis options
+    with the bank and the speech pool; without ``--on-the-fly`` nothing."""
+    if not args.on_the_fly:
+        return {}
+    synth_kw = dict(args.synth_kwargs)
+    if args.speech_pool is not None:
+        synth_kw["speech_pool"] = args.speech_pool
+    return {"on_the_fly": True, "synth_kwargs": synth_kw}
+
+
+def recipe_kwargs(args) -> dict:
+    """The joint recipe's options of ``--bank-pretrain-updates`` after
+    :func:`load_datasets` (the JAX ``scripts/_common.py:recipe_kwargs``): the
+    leg boundary, the polish's exact options (the continuous ranges, the
+    speech pool) and the mixed-polish probability; nothing without the flag."""
+    if not args.bank_pretrain_updates:
+        return {}
+    if not (args.on_the_fly and args.rir_bank):
+        raise SystemExit("--bank-pretrain-updates requires --on-the-fly --rir-bank N (leg 1 trains from the bank)")
+    exact = dict(args.exact_synth_kwargs)
+    if args.speech_pool is not None:
+        exact["speech_pool"] = args.speech_pool
+    return {"joint_bank_updates": int(args.bank_pretrain_updates), "joint_exact_synth_kwargs": exact,
+            "joint_polish_bank_prob": float(args.polish_bank_prob)}
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     from ..eval import evaluate_joint_location, evaluate_location
     from ..train import JointLocationTask, LocationTask, run_pipeline
 
+    if args.bank_pretrain_updates and not args.joint_location:
+        raise SystemExit("--bank-pretrain-updates needs --joint-location")
     if args.smoke and args.updates is None:
         args.updates = 20
     config, train, val = load_datasets(args)
+    recipe = recipe_kwargs(args)
     stages = ("speech", "rir", "echoed", "finetune", "location") + (
         ("location_joint",) if args.joint_location else ()
     )
@@ -247,6 +354,7 @@ def main(argv=None) -> None:
         ),
         resume=args.resume, ckpt_every=args.ckpt_every, device=args.device, log_every=args.log_every,
         profile_dir=args.profile_dir, cache_frozen=args.cache_frozen, keep_checkpoints=args.keep_checkpoints,
+        **recipe, **otf_kwargs(args),
     )
 
     fixed = args.preset == "fixed"

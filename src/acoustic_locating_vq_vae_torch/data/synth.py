@@ -18,13 +18,19 @@ value from one ``torch.Generator``) and a deterministic core
 (:func:`synthesize_from_draws`), so the same draws give the same batch on the
 card and, in float64, on the CPU. The generator's streams are consumed in a
 fixed order whatever the options, so an option changes no other draw, and
-giving the geometry a random run drew reproduces that run. Not ported yet:
-the RIR bank (``rir_bank``, ``rir_bank_radii``, ``bank_mix_prob``,
-``make_rir_bank``, ``bank_thetas``) and host-staged datasets.
+giving the geometry a random run drew reproduces that run.
+
+The RIR bank (``:134-244``): :func:`make_rir_bank` precomputes the RIRs of a
+grid of angles (:func:`bank_thetas`), optionally times a T60 grid and a
+radius grid, and synthesis can gather each sample's RIR from it in place of
+the image-source sum (``rir_bank``, ``rir_bank_radii``), or mix the two per
+sample (``bank_mix_prob``). Not ported yet: host-staged datasets.
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -42,9 +48,11 @@ __all__ = [
     "SampleBatch",
     "SynthDraws",
     "add_sensor_noise",
+    "bank_thetas",
     "draw_synthesis",
     "geometry_boxes",
     "make_dataset",
+    "make_rir_bank",
     "max_source_radius",
     "observed_power_spec",
     "prune_batch",
@@ -121,6 +129,81 @@ def geometry_boxes(config: DatasetConfig, r_hi: float):
     return source_box, receiver_box
 
 
+def bank_thetas(n_theta: int) -> np.ndarray:
+    """The angle grid a RIR bank is built on: the bin centers of a uniform
+    ``n_theta``-partition of (-pi, pi], in float32."""
+    return (-np.pi + (np.arange(n_theta) + 0.5) * (2.0 * np.pi / n_theta)).astype(np.float32)
+
+
+def make_rir_bank(
+    config: DatasetConfig = DatasetConfig(),
+    n_theta: int = 4096,
+    rt60s: Optional[Sequence[float]] = None,
+    radii: Optional[Sequence[float]] = None,
+    chunk: int = 8192,
+    batch: int = 256,
+    device="cuda",
+) -> torch.Tensor:
+    """The RIR bank that synthesis can draw from, in float32 on ``device``
+    (default the card; raises without one unless asked for ``"cpu"``).
+
+    The source lies on a circle around the fixed receiver, so the RIRs of
+    ``n_theta`` grid angles (:func:`bank_thetas`), times a grid of T60s
+    (``rt60s``) and of source radii (``radii``) where given, cover the
+    geometry; a synthesized sample then gathers its RIR in place of the
+    image-source sum. Each grid cell is made by ``generate_rir_batch``,
+    ``batch`` angles at a time, with the cull boxed at that cell's radius,
+    so the bank is deterministic (no ``index_add_``). At the reference
+    geometry a RIR is 25.6 KB: 1024 angles x 8 T60s x 8 radii is 1.68 GB.
+
+    Returns (n_theta, n_sample); ``rt60s`` prepends a T60 axis, (n_t60,
+    n_theta, n_sample). ``radii`` always gives the 4-D (n_t60, n_r, n_theta,
+    n_sample), n_t60 = 1 without ``rt60s``: a 3-D radius bank could not be
+    told from a T60 bank by its shape, and synthesis refuses a 4-D bank
+    without its ``rir_bank_radii``. Every radius must keep the source circle
+    inside the room; a radius grid coarser than 5 cm warns."""
+    device = resolve_device(device)
+    if radii is not None:
+        radii = [float(r) for r in radii]
+        max_r = max_source_radius(config)
+        bad = [r for r in radii if not 0.0 < r < max_r]
+        if bad:
+            raise ValueError(
+                f"bank radii {bad} outside (0, {max_r}) (receiver {config.receiver_position[:2]} in room "
+                f"{config.room_dimensions[:2]}): sources would leave the room")
+        if len(radii) > 1:
+            gap = max(b - a for a, b in zip(sorted(radii), sorted(radii)[1:]))
+            if gap > 0.05:
+                warnings.warn(
+                    f"RIR-bank radius grid spacing {gap * 100:.1f} cm: a model trained only on this bank can fail "
+                    "to generalize to OFF-grid radii in the near field (VALIDATION.md run G: 14.3 cm spacing "
+                    "localized at median 0.023 rad ON the grid but 0.090 rad just 3.6 cm off it at R=0.7). Keep "
+                    "adjacent radii within ~5 cm, or finish with an exact-synthesis leg (drop rir_bank, keep "
+                    "radius_range).", stacklevel=2)
+    t60_grid = [config.reverberation_time] if rt60s is None else [float(t) for t in rt60s]
+    r_grid = [float(config.R)] if radii is None else radii
+    thetas = torch.from_numpy(bank_thetas(n_theta)).to(device)
+    receiver = torch.tensor(config.receiver_position, dtype=torch.float32).to(device)
+    room = torch.tensor(config.room_dimensions, dtype=torch.float32).to(device)
+    kw = dict(room=tuple(config.room_dimensions), nsample=config.n_sample, fs=float(config.fs), c=config.c, chunk=chunk)
+    bank = torch.empty((len(t60_grid), len(r_grid), n_theta, config.n_sample), device=device)
+    for j, r in enumerate(r_grid):
+        src = source_coordinates(thetas, receiver, room, radius=r, z_loc=config.Z_LOC_SOURCE)
+        sbox, rbox = geometry_boxes(config, r)  # the cell's geometry is static: box the cull at this radius
+        for i, t60 in enumerate(t60_grid):
+            for k in range(0, n_theta, batch):
+                bank[i, j, k : k + batch] = generate_rir_batch(
+                    src[k : k + batch], receiver, rt60=t60, source_box=sbox, receiver_box=rbox, **kw)
+    if radii is not None:
+        return bank
+    return bank[:, 0] if rt60s is not None else bank[0, 0]
+
+
+def _bank_view(rir_bank: torch.Tensor) -> torch.Tensor:
+    """Any bank layout as its 4-D (n_t60, n_r, n_theta, n_sample) view."""
+    return {2: lambda b: b[None, None], 3: lambda b: b[:, None], 4: lambda b: b}[rir_bank.dim()](rir_bank)
+
+
 class SynthDraws(NamedTuple):
     """Every random input of a synthesized batch of B samples."""
 
@@ -132,6 +215,10 @@ class SynthDraws(NamedTuple):
     noise: Optional[torch.Tensor]  # (B, audio_samples) standard normal, with snr_db
     clean: Optional[torch.Tensor]  # (B,) bool, samples left without noise, or None
     r_hi: float  # static bound of the radius, for the geometry-boxed cull
+    # (B, 3) int64 (T60, radius, angle) cells of the bank's 4-D view that the samples gather, or None: no bank
+    bank_index: Optional[torch.Tensor] = None
+    # (B,) bool, the samples that gather from the bank (the others are synthesized exactly), or None: all do
+    use_bank: Optional[torch.Tensor] = None
 
     def to(self, device=None, dtype=None) -> "SynthDraws":
         """The draws on ``device``, floating tensors cast to ``dtype``."""
@@ -143,10 +230,54 @@ class SynthDraws(NamedTuple):
         return SynthDraws(*(move(a) for a in self))
 
 
-def _check_options(config, radius_range, radius, snr_range, snr_clean_prob) -> None:
-    """The option errors of the JAX ``synthesize_batch`` that apply without a RIR bank."""
+def _check_options(config, fixed_rir, rt60_range, radius_range, theta, radius, snr_range, snr_clean_prob,
+                   rir_bank, rir_bank_radii, bank_mix_prob) -> None:
+    """The option errors of the JAX ``synthesize_batch`` (``synth.py:367-472``), in its order and words."""
+    if bank_mix_prob is not None:
+        if rir_bank is None:
+            raise ValueError("bank_mix_prob requires rir_bank")
+        if not 0.0 < float(bank_mix_prob) < 1.0:
+            raise ValueError(
+                "bank_mix_prob must be strictly between 0 and 1 (use rir_bank=None for pure exact, no "
+                f"bank_mix_prob for pure bank), got {bank_mix_prob}")
+        if fixed_rir or theta is not None or radius is not None:
+            raise ValueError("bank_mix_prob excludes fixed_rir and given theta/radius")
+    if rir_bank is not None and rt60_range is not None and bank_mix_prob is None:
+        raise ValueError("rir_bank excludes rt60_range: use a 3-D bank (make_rir_bank rt60s=...) for "
+                         "reverberation randomization")
+    if rir_bank is not None and radius_range is not None and bank_mix_prob is None:
+        raise ValueError(
+            "rir_bank excludes radius_range: the bank's RIRs are precomputed at fixed radii — use a "
+            "radius-gridded bank (make_rir_bank radii=... + rir_bank_radii=) for geometry randomization from "
+            "the bank")
+    if theta is not None and rir_bank is not None:
+        raise ValueError("given theta excludes rir_bank (bank RIRs exist only at grid angles): drop the bank to "
+                         "synthesize the exact geometry")
     if radius is not None and radius_range is not None:
         raise ValueError("given radius excludes radius_range")
+    if rir_bank_radii is not None:
+        if rir_bank is None:
+            raise ValueError("rir_bank_radii requires rir_bank")
+        if radius is not None:
+            raise ValueError("given radius excludes a radius-gridded rir_bank (bank RIRs exist only at grid "
+                             "radii): drop the bank to synthesize the exact geometry")
+        if rir_bank.dim() != 4:
+            raise ValueError(
+                "rir_bank_radii requires a 4-D (n_t60, n_r, n_theta, n_sample) bank — make_rir_bank(radii=...) "
+                f"always returns one, with n_t60=1 when rt60s is None — got ndim {rir_bank.dim()}")
+        if rir_bank.shape[1] != len(rir_bank_radii):
+            raise ValueError(
+                f"rir_bank radius axis {rir_bank.shape[1]} != len(rir_bank_radii) {len(rir_bank_radii)}")
+    elif rir_bank is not None and rir_bank.dim() == 4:
+        raise ValueError("a 4-D rir_bank carries a radius axis: pass its grid values via rir_bank_radii")
+    elif rir_bank is not None and rir_bank.dim() not in (2, 3):
+        raise ValueError("rir_bank must be (n_theta, n_sample), (n_t60, n_theta, n_sample), or the 4-D "
+                         f"radius-gridded layout, got ndim {rir_bank.dim()}")
+    if bank_mix_prob is not None and radius_range is not None and rir_bank_radii is None:
+        raise ValueError(
+            "bank_mix_prob with radius_range requires a radius-gridded bank (make_rir_bank(radii=...) + "
+            "rir_bank_radii): a bank without a radius axis holds RIRs at the fixed config.R, so its samples' "
+            "radius labels could not match their RIRs")
     if radius_range is not None:
         lo, hi = float(radius_range[0]), float(radius_range[1])
         max_r = max_source_radius(config)
@@ -164,6 +295,22 @@ def _check_options(config, radius_range, radius, snr_range, snr_clean_prob) -> N
         raise ValueError(f"snr_clean_prob must be in [0, 1], got {snr_clean_prob}")
     if snr_clean_prob and snr_range is None:
         raise ValueError("snr_clean_prob requires snr_range")
+    if rir_bank is not None and rir_bank.shape[-1] != config.n_sample:
+        raise ValueError(f"rir_bank n_sample {rir_bank.shape[-1]} != config.n_sample {config.n_sample}")
+
+
+def snap_to_bank(theta: torch.Tensor, radius: torch.Tensor, n_theta: int, radii: Optional[torch.Tensor]):
+    """The bank cells nearest a continuous geometry: the angle cell that
+    holds ``theta`` and the grid radius nearest ``radius`` (the first on a
+    tie); returns (angle index, radius index, the cell's angle, the grid
+    radius), the radius index 0 and the radius unchanged without ``radii``."""
+    cell = 2.0 * math.pi / n_theta
+    t_idx = torch.clamp(torch.floor((theta + math.pi) / cell).long(), 0, n_theta - 1)
+    grid = torch.from_numpy(bank_thetas(n_theta)).to(theta.device, theta.dtype)
+    if radii is None:
+        return t_idx, torch.zeros_like(t_idx), grid[t_idx], radius
+    r_idx = torch.argmin(torch.abs(radius[:, None] - radii[None, :]), dim=1)
+    return t_idx, r_idx, grid[t_idx], radii[r_idx]
 
 
 def draw_synthesis(
@@ -179,14 +326,23 @@ def draw_synthesis(
     radius=None,
     snr_range: Optional[Sequence[float]] = None,
     snr_clean_prob: float = 0.0,
+    rir_bank: Optional[torch.Tensor] = None,
+    rir_bank_radii=None,
+    bank_mix_prob: Optional[float] = None,
 ) -> SynthDraws:
     """The draw step of :func:`synthesize_batch` (its options, same
     meanings), on the generator's device. The streams are drawn in one fixed
     order whatever the options — angle, T60, radius, SNR, clean mask, sensor
-    noise, then the synthetic speech where no ``speech`` is given — and the
-    options only shape what was drawn: ``fixed_rir`` repeats the first
-    sample's drawn angle, radius and T60, ``fixed_speech`` its utterance."""
-    _check_options(config, radius_range, radius, snr_range, snr_clean_prob)
+    noise, then the synthetic speech where no ``speech`` is given, then,
+    with a ``rir_bank`` only, the bank's angle, T60 and radius cells and the
+    mix mask — and the options only shape what was drawn: ``fixed_rir``
+    repeats the first sample's drawn angle, radius and T60 (or bank cell),
+    ``fixed_speech`` its utterance. A bank sample's labels are its cell's
+    geometry: the angle of :func:`bank_thetas` and the grid radius."""
+    if rir_bank_radii is not None:
+        rir_bank_radii = torch.as_tensor(rir_bank_radii, dtype=torch.float32)
+    _check_options(config, fixed_rir, rt60_range, radius_range, theta, radius, snr_range, snr_clean_prob,
+                   rir_bank, rir_bank_radii, bank_mix_prob)
     dev = generator.device
 
     def first(a):
@@ -204,6 +360,7 @@ def draw_synthesis(
         speech = torch.as_tensor(speech, dtype=torch.float32).to(dev)
     if fixed_speech:
         speech = speech[:1].expand(speech.shape)
+    u_bank = None if rir_bank is None else torch.rand((4, batch), generator=generator, device=dev)
 
     if theta is not None:
         theta = torch.as_tensor(theta, dtype=torch.float32).to(dev).expand(batch)
@@ -234,7 +391,24 @@ def draw_synthesis(
             clean = u_clean < float(snr_clean_prob)
     else:
         noise = None
-    return SynthDraws(theta, radius, speech, rt60, snr_db, noise, clean, r_hi)
+    bank_index = use_bank = None
+    if rir_bank is not None:
+        n_t60, n_r, n_theta = _bank_view(rir_bank).shape[:3]
+        radii = None if rir_bank_radii is None else rir_bank_radii.to(dev)
+        cells = [torch.clamp((u * n).long(), max=n - 1) for u, n in zip(u_bank[:3], (n_theta, n_t60, n_r))]
+        if bank_mix_prob is None:
+            t_idx, t60_idx, r_idx = (first(c) for c in cells)
+            theta = torch.from_numpy(bank_thetas(n_theta)).to(dev)[t_idx]
+            if radii is not None:
+                radius = radii[r_idx]
+        else:  # the continuous draw, snapped to the bank's cells where the mask picks the bank
+            t_idx, r_idx, theta_grid, radius_grid = snap_to_bank(theta, radius, n_theta, radii)
+            t60_idx = cells[1]
+            use_bank = u_bank[3] < float(bank_mix_prob)
+            theta = torch.where(use_bank, theta_grid, theta)
+            radius = torch.where(use_bank, radius_grid, radius)
+        bank_index = torch.stack([t60_idx, r_idx, t_idx], dim=1)
+    return SynthDraws(theta, radius, speech, rt60, snr_db, noise, clean, r_hi, bank_index, use_bank)
 
 
 def add_sensor_noise(echoed: torch.Tensor, snr_db: torch.Tensor, noise: torch.Tensor,
@@ -282,13 +456,24 @@ def synthesize_from_draws(
     fixed_rir: bool = False,
     rir_chunk: int = 8192,
     geom_cull: bool = True,
+    rir_bank: Optional[torch.Tensor] = None,
 ) -> SampleBatch:
     """The deterministic core of :func:`synthesize_batch`: the batch of
     ``draws``, on their device and in their floating dtype (float32 or
-    float64). ``fixed_rir``: one RIR, of the first sample, for every sample."""
+    float64). ``fixed_rir``: one RIR, of the first sample, for every sample.
+    Draws with bank cells gather those samples' RIRs from ``rir_bank`` (cast
+    to the draws' dtype); where ``use_bank`` is false the RIR is exact."""
     theta, speech = draws.theta, draws.speech
     batch, dev = theta.shape[0], theta.device
-    h = rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull)
+    if draws.bank_index is None:
+        h = rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull)
+    else:
+        if rir_bank is None:
+            raise ValueError("draws with bank cells need the rir_bank they were drawn from")
+        bank = _bank_view(rir_bank)
+        h = bank[tuple(draws.bank_index.to(bank.device).unbind(1))].to(dev, theta.dtype)
+        if draws.use_bank is not None:
+            h = torch.where(draws.use_bank[:, None], h, rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull))
     echoed = fft_convolve(speech, h, mode="same")
     if draws.snr_db is not None:
         echoed = add_sensor_noise(echoed, draws.snr_db, draws.noise, draws.clean)
@@ -322,6 +507,9 @@ def synthesize_batch(
     snr_range: Optional[Sequence[float]] = None,
     snr_clean_prob: float = 0.0,
     geom_cull: bool = True,
+    rir_bank: Optional[torch.Tensor] = None,
+    rir_bank_radii=None,
+    bank_mix_prob: Optional[float] = None,
     device="cuda",
 ) -> SampleBatch:
     """Synthesize ``batch`` samples on ``device`` (default the card; raises
@@ -340,13 +528,26 @@ def synthesize_batch(
     ``snr_clean_prob``: each sample stays clean with this probability.
     ``geom_cull``: the RIR's lattice culled to the geometry's boxes.
     ``rir_chunk``: lattice images per step of the RIR's walk.
+
+    ``rir_bank``: a bank of :func:`make_rir_bank` (on ``device``, where it
+    is read once a batch). Each sample draws a uniform angle cell, and a
+    uniform T60 cell of a 3-D or 4-D bank, and gathers that RIR in place of
+    the image-source sum; its angle label is the cell's angle. Excludes
+    ``rt60_range``, ``radius_range`` and a given ``theta``.
+    ``rir_bank_radii``: the radius grid of a 4-D bank, required with one;
+    each sample draws a uniform radius cell, its label the grid radius.
+    ``bank_mix_prob``: per sample, with this probability the continuous
+    draw is snapped to the bank (the angle's cell, the nearest grid radius,
+    a uniform T60 cell) and gathered, else synthesized exactly; then
+    ``rt60_range`` / ``radius_range`` shape the exact side (a radius range
+    needs a radius-gridded bank). Labels always match the RIR used.
     """
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"the generator lies on {generator.device}, the batch is made on {device}")
     draws = draw_synthesis(generator, batch, config, speech, fixed_rir, fixed_speech, rt60_range, radius_range,
-                           theta, radius, snr_range, snr_clean_prob)
-    return synthesize_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull)
+                           theta, radius, snr_range, snr_clean_prob, rir_bank, rir_bank_radii, bank_mix_prob)
+    return synthesize_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull, rir_bank)
 
 
 def prune_batch(batch: SampleBatch, keep_fields, store_dtype=None) -> SampleBatch:

@@ -1,7 +1,7 @@
 """Stage task specs, the stage handoff, the training loop and the pipeline."""
 
 from .loop import Preempted, Trainer, TrainHistory
-from .pipeline import run_pipeline, run_stage, stage_seed
+from .pipeline import fit_joint_recipe, run_pipeline, run_stage, stage_seed
 from .tasks import (
     EchoedSpeechTask,
     EncoderFinetuneTask,
@@ -18,6 +18,6 @@ from .tasks import (
 
 __all__ = [
     "EchoedSpeechTask", "EncoderFinetuneTask", "JointLocationTask", "LocationTask", "Preempted", "RirVQVAETask",
-    "SpeechVQVAETask", "Task", "Trainer", "TrainHistory", "check_flatten_handoff", "graft_pretrained",
+    "SpeechVQVAETask", "Task", "Trainer", "TrainHistory", "check_flatten_handoff", "fit_joint_recipe", "graft_pretrained",
     "make_task", "resolved_vq_flatten", "run_pipeline", "run_stage", "stage_seed",
 ]

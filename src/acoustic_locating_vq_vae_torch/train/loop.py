@@ -3,13 +3,20 @@
 Counterpart of ``acoustic_locating_vq_vae_tpu/train/loop.py``: ``Preempted``
 (:47-62), ``TrainHistory`` (:89-130), the ``Trainer``'s state, optimizer and
 frozen composite (:133-319), its step (:423-475), ``request_preemption`` and
-``fit`` (:502-737), the resident field check (:739-753), the frozen-latent
-cache (:609-633, :783-813) and the checkpoints (:817-918):
+``fit`` (:502-737), on-the-fly synthesis (:150-190, :477-500), the resident
+field check (:739-753), the frozen-latent cache (:609-633, :783-813) and the
+checkpoints (:817-918):
 
 * the dataset is resident on the trainer's device; each step samples a fresh
   batch without replacement (the reference's fresh-shuffle
   ``next(iter(loader))``, train_speech.py:57-61) from an explicit CPU
   generator, and bf16-stored arrays are cast to float32 per batch;
+* with ``on_the_fly`` each train step synthesizes a fresh batch on the
+  device instead (``data.synthesize_batch`` with ``synth_kwargs``, from a
+  synthesis generator on the trainer's device); a RIR bank and a speech pool
+  in ``synth_kwargs`` are moved to the device once, when the trainer is made
+  or :meth:`Trainer.set_synthesis` is called, and the training set is unused
+  (it may be None); eval steps still sample the resident validation set;
 * a train step runs the task's loss, its backward and one Adam update
   (``torch.optim.Adam(lr)``: the same update as ``optax.adam(lr)``, eps 1e-8
   outside the square root, bias-corrected). A frozen parameter ends the step
@@ -22,7 +29,8 @@ cache (:609-633, :783-813) and the checkpoints (:817-918):
   cache path;
 * with ``cache_frozen``, a task with a frozen path (``supports_cache``)
   trains from its frozen branches' code ids, computed once per resident
-  dataset and sampled with their rows;
+  dataset and sampled with their rows (under ``on_the_fly`` only the
+  validation set's: synthesized batches run the frozen branches);
 * with ``val_replaces_train`` every ``eval_every``-th step is an eval step
   that takes the place of a train step (train_speech.py:57,76-87);
 * the trainer counts its steps (``step_count``, the JAX ``state.step``, eval steps
@@ -30,9 +38,9 @@ cache (:609-633, :783-813) and the checkpoints (:817-918):
   (``checkpoint_dir``) it saves a periodic checkpoint every
   ``task.ckpt_every`` steps and a final one at the end; a checkpoint holds
   the model's state dict (EMA buffers included), Adam's state dict, the step
-  and the states of both CPU generators, so a resumed run draws the same
-  batches and jitter decisions as an uninterrupted one and its steps are
-  bitwise the same;
+  and the states of both CPU generators (and under ``on_the_fly`` of the
+  synthesis generator), so a resumed run draws the same batches and jitter
+  decisions as an uninterrupted one and its steps are bitwise the same;
 * SIGTERM during ``fit`` saves a checkpoint at the next step boundary and
   raises :class:`Preempted`; ``fit(resume=True)`` continues from the newest
   periodic checkpoint;
@@ -40,7 +48,7 @@ cache (:609-633, :783-813) and the checkpoints (:817-918):
 * convolutions and matrix products run in full float32 (TF32 off), the
   convolutions with cuDNN's deterministic algorithms (``utils/device.py``).
 
-The mesh, on-the-fly synthesis and host-staged data come in later slices.
+The mesh and host-staged data come in later slices.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import sample_without_replacement
-from ..data.synth import SampleBatch
+from ..data.synth import SampleBatch, synthesize_batch
 from ..utils.checkpoint import StageStore
 from ..utils.device import deterministic_convs, full_fp32, resolve_device
 from ..utils.profiling import trace
@@ -136,8 +144,15 @@ class Trainer:
     The weights are drawn from ``seed`` on the CPU and moved to ``device``,
     so a run on the card and one on the CPU start alike; batch sampling and
     jitter decisions come from their own CPU generators seeded from
-    ``seed + 1`` and ``seed + 2``. Runs on the card unless ``device="cpu"``;
-    raises if a card is asked for and none is present.
+    ``seed + 1`` and ``seed + 2``, on-the-fly synthesis from a generator on
+    ``device`` seeded from ``seed + 3``. Runs on the card unless
+    ``device="cpu"``; raises if a card is asked for and none is present.
+
+    ``on_the_fly`` synthesizes every train step's batch (see
+    :meth:`otf_batch`); ``synth_kwargs`` are its ``synthesize_batch``
+    options, with ``rir_bank`` and ``speech_pool`` (n, audio_samples) held on
+    the device. Both of those are refused without ``on_the_fly``: a resident
+    set draws them when it is made (``make_dataset``).
 
     ``composite_params`` is the state dict of the composite whose RIR branch
     feeds a :class:`LocationTask` (train_location.py:38,69), required there;
@@ -163,9 +178,13 @@ class Trainer:
         checkpoint_dir: Optional[str] = None,
         keep_checkpoints: int = 0,
         profile_dir: Optional[str] = None,
+        on_the_fly: bool = False,
+        synth_kwargs: Optional[Mapping] = None,
     ):
         self.task = task
         self.device = resolve_device(device)
+        self.on_the_fly = on_the_fly
+        self.set_synthesis(synth_kwargs)
         self.frozen_rir = task.build_frozen(composite_params, self.device)
         self.model = task.build_model(torch.Generator().manual_seed(seed)).to(self.device).train()
         # model.parameters() yields a tied residual block once, so Adam's
@@ -174,6 +193,7 @@ class Trainer:
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=task.learning_rate)
         self.sample_generator = torch.Generator().manual_seed(seed + 1)
         self.jitter_generator = torch.Generator().manual_seed(seed + 2)
+        self.synth_generator = torch.Generator(self.device).manual_seed(seed + 3) if on_the_fly else None
         self.step_count = 0  # steps taken, eval steps included (the JAX state.step)
         self.log_every = log_every
         self.val_replaces_train = val_replaces_train
@@ -184,6 +204,42 @@ class Trainer:
         self.profile_dir = profile_dir
         # set by the SIGTERM handler fit() installs, or request_preemption()
         self._preempt_requested = False
+
+    def set_synthesis(self, synth_kwargs: Optional[Mapping]) -> None:
+        """Set the on-the-fly synthesis options (``synth_kwargs`` of the
+        constructor): the RIR bank and the speech pool go to the device now,
+        once, and every later :meth:`otf_batch` reads them there. The
+        synthesis generator keeps its state."""
+        self.synth_kwargs = dict(synth_kwargs or {})
+        bank = self.synth_kwargs.pop("rir_bank", None)
+        pool = self.synth_kwargs.pop("speech_pool", None)
+        if not self.on_the_fly and (bank is not None or pool is not None):
+            raise ValueError(
+                "synth_kwargs rir_bank/speech_pool only apply to on_the_fly training; resident datasets draw from "
+                "make_dataset(speech_pool=...) at build time"
+            )
+        self.rir_bank = None if bank is None else torch.as_tensor(bank).to(self.device)
+        self.speech_pool = None
+        if pool is not None:
+            self.speech_pool = torch.as_tensor(pool, dtype=torch.float32).to(self.device)
+            if self.speech_pool.shape[1] != self.task.config.audio_samples:
+                raise ValueError(f"speech_pool length {self.speech_pool.shape[1]} != config.audio_samples "
+                                 f"{self.task.config.audio_samples}")
+
+    def otf_batch(self) -> SampleBatch:
+        """One on-the-fly training batch of ``task.batch_size`` samples,
+        synthesized on the device from the synthesis generator: with a
+        speech pool, each sample's utterance is a pool row drawn first, then
+        ``synthesize_batch`` draws the rest (the order ``make_dataset``
+        draws a batch in), from the bank where one is set."""
+        gen, b = self.synth_generator, self.task.batch_size
+        kw = dict(self.synth_kwargs)
+        if self.rir_bank is not None:
+            kw["rir_bank"] = self.rir_bank
+        if self.speech_pool is not None:
+            kw["speech"] = self.speech_pool[torch.randint(self.speech_pool.shape[0], (b,), generator=gen,
+                                                          device=gen.device)]
+        return synthesize_batch(gen, b, self.task.config, device=self.device, **kw)
 
     def to_device(self, data: SampleBatch) -> SampleBatch:
         return data.map(lambda a: torch.as_tensor(a).to(self.device))
@@ -277,10 +333,12 @@ class Trainer:
         save_final: bool = True,
     ) -> TrainHistory:
         """Run the stage from the trainer's step count up to ``num_updates`` (the
-        task's count when 0 or None) over the resident ``train_data``; with
-        ``val_data`` and ``val_replaces_train`` every ``eval_every``-th step
-        is an eval step on it instead. With ``cache_frozen`` and a task that
-        supports it, the cache of each dataset is built first.
+        task's count when 0 or None) over the resident ``train_data``, or,
+        ``on_the_fly``, over synthesized batches (``train_data`` is unused
+        and may be None, ``val_data`` is required); with ``val_data`` and
+        ``val_replaces_train`` every ``eval_every``-th step is an eval step
+        on it instead. With ``cache_frozen`` and a task that supports it, the
+        cache of each resident dataset is built first.
 
         With ``resume=True`` and a store, the stage restarts from its newest
         periodic checkpoint (weights, Adam, step and generators), so a crash
@@ -305,14 +363,22 @@ class Trainer:
 
     def _fit(self, train_data, val_data, num_updates, resume, save_final) -> TrainHistory:
         num_updates = num_updates or self.task.num_updates
+        if train_data is None and not self.on_the_fly:
+            raise ValueError("train_data=None requires on_the_fly=True")
+        if self.on_the_fly and val_data is None:
+            raise ValueError("on-the-fly training still needs val_data (or a small stub)")
         if resume:
             restored = self.restore_latest()
             if restored is not None and self.verbose:
                 print(f"[{self.task.name}] resumed at step {restored}", flush=True)
         caching = self.cache_frozen and self.task.supports_cache
-        train_data = self.to_device(train_data)
-        self._check_resident_fields(train_data)
-        train_cache = self.build_cache(train_data) if caching else None
+        train_cache = None
+        if self.on_the_fly:
+            train_data = None
+        else:
+            train_data = self.to_device(train_data)
+            self._check_resident_fields(train_data)
+            train_cache = self.build_cache(train_data) if caching else None
         val_cache = None
         if val_data is not None:
             val_data = self.to_device(val_data)
@@ -339,7 +405,9 @@ class Trainer:
                     val_data is not None and self.val_replaces_train and (i + 1) % self.task.eval_every == 0
                 )
                 data, cache = (val_data, val_cache) if is_val else (train_data, train_cache)
-                if cache is None:
+                if self.on_the_fly and not is_val:
+                    batch, rows = self.otf_batch(), None
+                elif cache is None:
                     batch, rows = self.sample(data), None
                 else:
                     batch, rows = self.sample_cached(data, cache)
@@ -379,6 +447,8 @@ class Trainer:
             "sample_generator": self.sample_generator.get_state(),
             "jitter_generator": self.jitter_generator.get_state(),
         }
+        if self.on_the_fly:
+            tree["synth_generator"] = self.synth_generator.get_state()
         meta: dict = {"task": self.task.name, "final": final, "has_rng": True}
         for attr in _META_ATTRS:
             if hasattr(self.task, attr):
@@ -420,10 +490,15 @@ class Trainer:
         if best is None:
             return None
         tree = self.store.load_stage(best[0])  # on the CPU, where the generators' states live
+        if self.on_the_fly and "synth_generator" not in tree:
+            raise ValueError(f"checkpoint {best[0]!r} holds no synthesis generator: it was not saved by an "
+                             "on-the-fly run, so this one cannot continue its batches")
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         self.sample_generator.set_state(tree["sample_generator"])
         self.jitter_generator.set_state(tree["jitter_generator"])
+        if self.on_the_fly:
+            self.synth_generator.set_state(tree["synth_generator"])
         self.step_count = int(tree["step"])
         return self.step_count
 

@@ -1,8 +1,8 @@
 """The six-stage training pipeline, chained through a stage store.
 
-Counterpart of ``acoustic_locating_vq_vae_tpu/train/pipeline.py:43-67`` and
-``:201-449``: the reference's stage graph with explicit handoff of state
-dicts in place of whole-module pickles,
+Counterpart of ``acoustic_locating_vq_vae_tpu/train/pipeline.py:43-449``: the
+reference's stage graph with explicit handoff of state dicts in place of
+whole-module pickles,
 
     speech VQ-VAE ----\\
                        +--> echoed composite --> encoder fine-tune --> location
@@ -10,18 +10,17 @@ dicts in place of whole-module pickles,
 
 (reference: train_speech.py + train_rir.py -> train_echoed_speech.py:18-19
 loads both -> encoder_training_echoed_model.py:43 reloads the composite ->
-train_location.py:38 reads the composite for frozen latents).
+train_location.py:38 reads the composite for frozen latents), and the joint
+stage's bank-pretrain and exact-polish recipe (:func:`fit_joint_recipe`).
 
 Not ported here: the mesh and ``sequence_axis`` (one device), ``vq_backend``
 (a CUDA tensor always runs the port's kernel, a CPU tensor its plain
-version), bf16 ``compute_dtype``, and the joint stage's bank-pretrain and
-exact-polish recipe (``fit_joint_recipe``, ``joint_bank_updates``,
-``joint_exact_synth_kwargs``, ``joint_polish_bank_prob``), which needs
-on-the-fly synthesis.
+version) and bf16 ``compute_dtype``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -41,7 +40,7 @@ from .tasks import (
     graft_pretrained,
 )
 
-__all__ = ["run_stage", "run_pipeline", "stage_seed"]
+__all__ = ["fit_joint_recipe", "run_stage", "run_pipeline", "stage_seed"]
 
 StateDict = Mapping[str, torch.Tensor]
 
@@ -82,6 +81,86 @@ def run_stage(
     return trainer, history
 
 
+def fit_joint_recipe(
+    task: JointLocationTask,
+    seed: int,
+    train_data: Optional[SampleBatch],
+    val_data: Optional[SampleBatch],
+    store_dir: Optional[str],
+    composite_params: StateDict,
+    bank_updates: int,
+    num_updates: Optional[int],
+    exact_synth_kwargs: Optional[Dict] = None,
+    resume: bool = False,
+    polish_bank_prob: float = 0.0,
+    **trainer_kwargs,
+) -> Tuple[Trainer, TrainHistory]:
+    """The joint stage's production recipe in one call (JAX
+    ``pipeline.py:70-198``; VALIDATION.md runs G and H): ``bank_updates``
+    on-the-fly updates drawn from the RIR bank in
+    ``trainer_kwargs["synth_kwargs"]``, then an exact-synthesis polish with
+    ``exact_synth_kwargs`` up to ``num_updates`` in all. A :class:`Trainer`
+    of ``task`` from ``seed`` starts from the joint handoff of
+    ``composite_params``.
+
+    One store and one step count: leg 1 ends without a final checkpoint
+    and the boundary is pinned as a periodic one, so the stage reads as
+    complete only after the polish; with a store, leg 2 resumes through it
+    (the boundary, or a later checkpoint of a preempted polish: weights,
+    Adam, step and every generator, the synthesis one included), without
+    one it runs the remaining updates. ``resume=True`` restarts inside
+    whichever leg a run stopped in (a restore past ``bank_updates`` makes
+    leg 1 empty).
+
+    The hard bank-to-exact switch is a distribution shift that roughly
+    doubles the training error at the boundary (run J: 0.163 -> 0.315); a
+    polish under the measured ~50k re-convergence horizon warns, and
+    ``polish_bank_prob`` > 0 softens the boundary: each polish sample draws
+    from the bank with that probability (``bank_mix_prob``) and is exact
+    otherwise. Returns the trainer and the two legs' merged history."""
+    if num_updates is None:
+        num_updates = task.num_updates
+    if not 0 < bank_updates < num_updates:
+        raise ValueError(f"bank_updates must satisfy 0 < bank < total updates, got {bank_updates} of {num_updates}")
+    if not 0.0 <= float(polish_bank_prob) < 1.0:
+        raise ValueError(f"polish_bank_prob must be in [0, 1), got {polish_bank_prob}")
+    polish_updates = num_updates - bank_updates
+    if polish_updates < 50_000 and polish_updates < bank_updates:
+        # small runs (tests, smoke budgets) shrink both legs together and stay silent
+        warnings.warn(
+            f"polish leg is {polish_updates} updates — below the measured ~50k re-convergence horizon of the "
+            "bank->exact distribution shift (run H re-converged inside 50k; run J's 20k polish ended WORSE than "
+            "its bank leg, 0.224 vs 0.163 train error). Either budget >= 50k polish updates or soften the "
+            "boundary with polish_bank_prob (--polish-bank-prob).", stacklevel=2)
+    synth_kw = trainer_kwargs.get("synth_kwargs") or {}
+    if "rir_bank" not in synth_kw:
+        raise ValueError("bank pretraining needs a RIR bank in synth_kwargs (CLI: --rir-bank N with --on-the-fly)")
+    if (exact_synth_kwargs or {}).get("rir_bank") is not None:
+        raise ValueError("exact_synth_kwargs must not carry a rir_bank")
+    trainer = Trainer(task, seed=seed, checkpoint_dir=store_dir, **trainer_kwargs)
+    trainer.model.load_state_dict(task.seed_params(trainer.model.state_dict(), composite_params))
+    h1 = trainer.fit(train_data, val_data, num_updates=bank_updates, resume=resume, save_final=False)
+    if store_dir:
+        # the leg boundary as a periodic tag, so leg 2 resumes there even off the ckpt_every cadence
+        trainer.save_checkpoint(tag=f"{task.name}_{trainer.step_count}")
+    if trainer.verbose:
+        print(f"[{task.name}] bank pretraining done at step {trainer.step_count}; polishing with exact synthesis "
+              f"to {num_updates}", flush=True)
+    polish = dict(exact_synth_kwargs or {})
+    if polish_bank_prob:
+        polish.update(rir_bank=trainer.rir_bank, bank_mix_prob=float(polish_bank_prob))
+        if "rir_bank_radii" in synth_kw:
+            polish["rir_bank_radii"] = synth_kw["rir_bank_radii"]
+    trainer.set_synthesis(polish)
+    h2 = trainer.fit(train_data, val_data, num_updates=num_updates, resume=bool(store_dir))
+    merged = TrainHistory()
+    for h in (h1, h2):
+        for split in ("train", "val"):
+            for k, v in getattr(h, split).items():
+                getattr(merged, split).setdefault(k, []).extend(v)
+    return trainer, merged
+
+
 def run_pipeline(
     seed: int,
     train_data: SampleBatch,
@@ -101,6 +180,9 @@ def run_pipeline(
     resume: bool = False,
     ckpt_every: Optional[int] = None,
     joint_task_kwargs: Optional[Dict] = None,
+    joint_bank_updates: Optional[int] = None,
+    joint_exact_synth_kwargs: Optional[Dict] = None,
+    joint_polish_bank_prob: float = 0.0,
     **trainer_kwargs,
 ) -> Dict[str, Tuple[Dict[str, torch.Tensor], Optional[TrainHistory]]]:
     """Run the five stages, and the joint stage with ``joint_location``;
@@ -108,8 +190,14 @@ def run_pipeline(
     codebook statistics in a separate ``variables`` tree; here they are
     buffers in the state dict. ``trainer_kwargs`` go to every stage's
     :class:`Trainer` (``device``, ``cache_frozen``, ``keep_checkpoints``,
-    ``profile_dir``, ``log_every``, ``verbose``). Stage ``i`` trains from
-    :func:`stage_seed` ``(seed, i)``.
+    ``profile_dir``, ``log_every``, ``verbose``, ``on_the_fly``,
+    ``synth_kwargs``). Stage ``i`` trains from :func:`stage_seed` ``(seed,
+    i)``. With ``on_the_fly`` every stage synthesizes its training batches
+    (``train_data`` may be None) from ``synth_kwargs``, a RIR bank there
+    included; ``joint_bank_updates`` trains the joint stage by
+    :func:`fit_joint_recipe`: that many updates from the bank, then the
+    polish with ``joint_exact_synth_kwargs`` (``joint_polish_bank_prob``: a
+    mixed polish).
 
     ``resume=True`` (requires ``store_dir``) makes the pipeline crash-safe:
     a stage whose final checkpoint is in the store is skipped (its weights
@@ -206,5 +294,15 @@ def run_pipeline(
             **({"ckpt_every": ckpt_every} if ckpt_every is not None else {}),
             **(joint_task_kwargs or {}),
         )
-        stage(5, joint, initial=lambda fresh: joint.seed_params(fresh, finetune))
+        if joint_bank_updates:
+            done = completed(joint.name)
+            if done is not None:
+                results[joint.name] = (done, None)
+                return results
+            trainer, history = fit_joint_recipe(
+                joint, stage_seed(seed, 5), train_data, val_data, store_dir, finetune, joint_bank_updates,
+                updates.get(joint.name), joint_exact_synth_kwargs, resume, joint_polish_bank_prob, **trainer_kwargs)
+            results[joint.name] = (trainer.model.state_dict(), history)
+        else:
+            stage(5, joint, initial=lambda fresh: joint.seed_params(fresh, finetune))
     return results
