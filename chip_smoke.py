@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1, 2 and 5 and the kernels' timings only
-    python3 chip_smoke.py --converge  # phase 1, then the speech and RIR stages to a known loss only
+    python3 chip_smoke.py --converge  # phase 1, then the speech and RIR stages to a known loss, FP32 and bf16
+    python3 chip_smoke.py --bf16      # phases 1, 2, 3, 8 and 13 only
     python3 chip_smoke.py --otf       # phases 1 and 12 only (--full-bank: run K's whole 1024-angle bank)
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
@@ -50,9 +51,10 @@ nothing of JAX. Phases, one line each (more for detail):
    (sincos + radius, tail term) at B = 4 on the card and on the CPU from the
    same seeded weights (codebooks of latent rows), batch and jitter decisions:
    codes under the tie rule, loss and metrics within LOSS_RTOL, every trained
-   gradient within GRAD_RTOL (the location stage's within LOCATION_GRAD_RTOL)
+   gradient within GRAD_RTOL (the location stage's within LOCATION_GRAD_RTOL,
+   the echoed stage's within ECHOED_GRAD_RTOL, at the three GRAD_SEEDS)
    of the same step in float64 on the CPU, a TF32 control step's gradients
-   printed beside it, the cached loss within CACHE_RTOL of the uncached one on
+   printed beside it and failing the stage's limit, the cached loss within CACHE_RTOL of the uncached one on
    the card, the echoed branches bitwise unchanged over three steps, and the
    kernels' launches per step (vq_nearest once per frozen branch run, the
    accumulation never);
@@ -102,10 +104,28 @@ nothing of JAX. Phases, one line each (more for detail):
    real SIGTERM in the bank leg and one in the polish leg, each followed by
    --resume, ending bitwise equal to the uninterrupted run.
 
+13. bf16 ``compute_dtype`` (``bf16_phase``): (a) one bf16 train step of every
+   stage (speech and RIR with the gradient and the EMA codebook, echoed
+   uncached and cached, finetune, location, joint) at B = 4 on the card from
+   the FP32 steps' weights, against the CPU port's bf16 step and the same step
+   in float64, both fed the card's latents: the launches, a finite float32 loss,
+   float32 parameters and Adam state, the card's codes on its own latent
+   against the CPU plain assignment (tie rule), every gradient within
+   BF16_FRACTION of the CPU bf16 step's distance from float64, the codes'
+   agreement with the FP32 step; (b) every stage's step at its own batch size,
+   FP32 and bf16, with and without the deterministic pin, the bf16 step's
+   launches, loss, parameters and codes at that size, the TF32 speech
+   yardstick, profiles of the speech and echoed bf16 steps by kernel class;
+   (c) the joint and frozen localizers served from bf16 tasks at B = 8 and 64
+   beside FP32 serving (latency, largest |delta theta|); (d) phase 10's
+   pipeline with --compute-dtype bfloat16, preempted and resumed bitwise.
+
 ``--converge`` trains the speech and RIR VQ-VAEs at full width for 1,500
-updates each on 256 + 64 synthesized rows and prints the recon of the first
-and last 100 updates, the perplexity and the validation recon (the JAX
-package's VALIDATION.md figures beside them, not gated).
+updates each on 256 + 64 synthesized rows, in FP32 and in bf16 from the same
+seed, and prints the recon of the first and last 100 updates, the perplexity
+and the validation recon (the JAX package's VALIDATION.md figures beside them,
+not gated); it fails where bf16's recon of the last 100 updates exceeds
+CONVERGE_BF16_LIMIT times FP32's.
 
 A kernel's time is read twice: on the card (some tens of calls captured in one
 CUDA graph and replayed between two events, so no host work lies between the
@@ -166,6 +186,13 @@ GRAD_RTOL = 1e-2
 # read 2.3e-7 to 3.5e-7 of their max from float64, its TF32 control step
 # 5.6e-4 (PERF.md), so the stage has a limit of its own between the two.
 LOCATION_GRAD_RTOL = 1e-5
+# The echoed stage (cached or not) trains the composite decoder alone behind the frozen branches: full-FP32
+# steps read 2.9e-4 to 4.2e-4 of their max from float64 at seed 80, its TF32 control steps 1.95e-3 (cached)
+# and 1.45e-2 (PERF.md), so GRAD_RTOL let a TF32 leak through the cached step. A limit of its own, between
+# the two, checked at the three GRAD_SEEDS. The finetune stage stays on GRAD_RTOL: its FP32 step reads 1.84e-3
+# (the encoders' first layers, as the speech stage's), above the echoed cached stage's TF32 control, and its
+# own TF32 control reads 0.119.
+ECHOED_GRAD_RTOL = 1e-3
 # of max(1, max |plain|), the plain version run in float64: the kernel sums
 # FP32 rows in its own fixed order
 ACCUM_RTOL = 1e-5
@@ -204,6 +231,8 @@ OTF_CONFIG = None  # None: the dataset's full geometry (201 x 500, 6400-tap RIRs
 OTF_CLI_EXTRA = ()  # flags added to every CLI run of phase 12
 # the recipe through the CLI: RECIPE_UPDATES a stage, the joint stage's first RECIPE_BANK from a small bank
 RECIPE_UPDATES, RECIPE_BANK, RECIPE_BANK_SIZE = 16, 8, (16, 2, 2)
+# `python3 chip_smoke.py --bf16`: phases 1 to 3 (the kernel checks and the localizers' weights), 8 and 13
+BF16_ONLY = "--bf16"
 # `python3 chip_smoke.py --kernels` runs only what needs no model: the build,
 # the kernels against their plain versions (phases 2 and 5) and their timings
 # (of phases 4 and 7); a short run for working on a kernel
@@ -963,6 +992,11 @@ def stage_control_grads(tr, batch, rows):
     return {k: p.grad.detach().cpu() for k, p in ctl.model.named_parameters() if p.grad is not None}
 
 
+def stage_grad_rtol(name: str) -> float:
+    """Phase 8's gradient limit of a stage (see GRAD_RTOL, LOCATION_GRAD_RTOL and ECHOED_GRAD_RTOL)."""
+    return {"location": LOCATION_GRAD_RTOL, "echoed": ECHOED_GRAD_RTOL}.get(name, GRAD_RTOL)
+
+
 def stage_step_card_vs_cpu(label: str, task, cached: bool, composite, dev, counters, seed: int):
     """Phase 8: one train step of a composite or location stage at full width, B = task.batch_size, on the
     card and on the CPU from the same weights, batch, cache and jitter decisions, and the same step in
@@ -1058,7 +1092,7 @@ def stage_step_card_vs_cpu(label: str, task, cached: bool, composite, dev, count
         return max((float((grads[k].double() - r).abs().max() / r.abs().max()), k) for k, r in g64.items())
 
     worst, worst_cpu, worst_tf32 = distance(g_card), distance(g_cpu)[0], distance(tf32)
-    limit = LOCATION_GRAD_RTOL if location else GRAD_RTOL
+    limit = stage_grad_rtol(task.name)
     if worst[0] > limit:
         raise AssertionError(f"{label}: the gradient of {worst[1]} is {worst[0]} of its max from float64, "
                              f"limit {limit}")
@@ -1083,6 +1117,35 @@ def stage_step_card_vs_cpu(label: str, task, cached: bool, composite, dev, count
     gc.collect()
     torch.cuda.empty_cache()
     return launches, worst, worst_tf32
+
+
+def stage_phase(composite, dev, counters) -> None:
+    """Phase 8: every composite and location stage's step card vs CPU (``stage_step_card_vs_cpu``), the echoed
+    and finetune stages at the three GRAD_SEEDS, and each stage's TF32 control shown to fail its limit."""
+    stage_worst = {}
+    for label, stage, cached, nearest in STAGES:
+        task = make_stage_task(stage, batch_size=CHECK_B)
+        # the echoed and finetune stages at the three GRAD_SEEDS (ECHOED_GRAD_RTOL's readings), the others at one
+        for seed in GRAD_SEEDS if stage in ("echoed", "finetune") else (STAGE_SEED,):
+            got, worst, worst_tf32 = stage_step_card_vs_cpu(label, task, cached, composite, dev, counters, seed)
+            want = {"nearest_indices_cuda": nearest, "codebook_grad_cuda": 0, "codebook_stats_cuda": 0}
+            if got != want:
+                raise AssertionError(f"{label} train step launched {got}, want {want}")
+            stage_worst.setdefault(label, []).append((worst, worst_tf32))
+    bites = []
+    for label, stage, _, _ in STAGES:
+        limit = stage_grad_rtol(make_stage_task(stage).name)
+        missed = [t[0] for _, t in stage_worst[label] if t[0] <= limit]
+        if missed:
+            raise AssertionError(f"{label}: the TF32 control step reads {missed}, within the stage's limit {limit}: "
+                                 "the check would not catch a TF32 leak")
+        bites.append(f"{label} TF32 {min(t[0] for _, t in stage_worst[label]):.3g} > {limit}")
+    phase(8, f"worst gradient distance from float64 over each gradient's max, card step | TF32 control, per seed "
+             f"(limit {LOCATION_GRAD_RTOL} for the location stage, {ECHOED_GRAD_RTOL} for the echoed stage, "
+             f"{GRAD_RTOL} for the others): "
+             + ", ".join(f"{label} " + " / ".join(f"{w[0]:.3g} | {t[0]:.3g}" for w, t in runs)
+                         for label, runs in stage_worst.items())
+             + "; every TF32 control fails its stage's limit, so each check bites: " + ", ".join(bites))
 
 
 def time_stage(label: str, task, cached: bool, composite, dev, counters, card: str) -> dict:
@@ -1288,8 +1351,9 @@ def assert_bitwise(got, want, path: str) -> None:
         raise AssertionError(f"{path}: {got} != {want}")
 
 
-def pipeline_phase(dev, counters, card: str) -> None:
-    """Phase 10: the six-stage pipeline at full width on the card, through its entry points, on sets
+def pipeline_phase(dev, counters, card: str, compute_dtype: str = "float32", ph: int = 10) -> None:
+    """Phase 10 (and 13 (d) with ``compute_dtype="bfloat16"``, printed as phase ``ph``): the six-stage
+    pipeline at full width on the card, through its entry points, on sets
     synthesized on the card from PIPE_SEED as the CLI synthesizes them. Run A calls run_pipeline in this
     process (preset fixed, the joint stage with the range output and a tail term, the
     frozen-latent cache, PIPE_UPDATES updates a stage, a checkpoint every PIPE_CKPT_EVERY, the newest
@@ -1307,12 +1371,13 @@ def pipeline_phase(dev, counters, card: str) -> None:
     from acoustic_locating_vq_vae_torch.utils import StageStore
 
     t_phase = time.perf_counter()
-    root = PIPE_ROOT / "pipeline"
+    root = PIPE_ROOT / f"pipeline_{compute_dtype}"
     shutil.rmtree(root, ignore_errors=True)
     store_a, store_b = root / "store_a", root / "store_b"
+    argv = lambda store, *extra: pipeline_argv(store, "--compute-dtype", compute_dtype, *extra)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cfg, train, val = load_datasets(build_parser().parse_args(pipeline_argv(store_a)))
+    cfg, train, val = load_datasets(build_parser().parse_args(argv(store_a)))
     torch.cuda.synchronize()
     synth_s = time.perf_counter() - t0
     for name, data in (("train", train), ("val", val)):
@@ -1334,17 +1399,17 @@ def pipeline_phase(dev, counters, card: str) -> None:
     with count_by_shape(), stage_clocks(counters) as clocks:
         res = run_pipeline(
             PIPE_SEED, train, val, store_dir=str(store_a), config=cfg, width_scale=PIPE_WIDTH, preset="fixed",
-            joint_location=True,
+            joint_location=True, compute_dtype=compute_dtype,
             predict_radius=True, joint_task_kwargs={"tail_weight": 0.5}, updates={s: PIPE_UPDATES for s in stages},
             ckpt_every=PIPE_CKPT_EVERY, keep_checkpoints=1, cache_frozen=True, device=dev, verbose=False,
         )
         torch.cuda.synchronize()
         run_launches = {c.__name__: c.launches for c in counters}
         evals = {
-            "location": evaluate_location(manifest_task("location", cfg), res["location"][0], res["finetune"][0],
-                                          val, device=dev),
-            "joint": evaluate_joint_location(manifest_task("location_joint", cfg), res["location_joint"][0], val,
-                                             device=dev),
+            "location": evaluate_location(manifest_task("location", cfg, compute_dtype), res["location"][0],
+                                          res["finetune"][0], val, device=dev),
+            "joint": evaluate_joint_location(manifest_task("location_joint", cfg, compute_dtype),
+                                             res["location_joint"][0], val, device=dev),
         }
     manifest = StageStore(str(store_a)).stages()
     for s in stages:
@@ -1364,7 +1429,7 @@ def pipeline_phase(dev, counters, card: str) -> None:
     for name, metrics in evals.items():
         if not all(math.isfinite(v) for v in metrics.values()) or metrics["num_samples"] != PIPE_ROWS["val"]:
             raise AssertionError(f"run A: {name} evaluation {metrics}")
-    phase(10, f"run A, run_pipeline in process on sets synthesized on the card from seed {PIPE_SEED} "
+    phase(ph, f"run A, run_pipeline ({compute_dtype}) in process on sets synthesized on the card from seed {PIPE_SEED} "
               f"({PIPE_ROWS['train']} + {PIPE_ROWS['val']} rows in {synth_s:.2f} s, load_datasets as the CLI), "
               f"full width, preset fixed, joint stage with radius and tail term, cache on, {PIPE_UPDATES} updates a stage, a checkpoint every {PIPE_CKPT_EVERY}, keep 1: six "
               f"finals at step {PIPE_UPDATES} with their tasks' metadata, at most one periodic tag a stage; "
@@ -1378,7 +1443,7 @@ def pipeline_phase(dev, counters, card: str) -> None:
     # restore_latest of each stage's newest periodic checkpoint into a fresh trainer
     restore_ms = {}
     for i, s in enumerate(stages):
-        task = manifest_task(s, cfg)
+        task = manifest_task(s, cfg, compute_dtype)
         tr = Trainer(task, device=dev, seed=stage_seed(PIPE_SEED, i), verbose=False, checkpoint_dir=str(store_a),
                      composite_params=res["finetune"][0] if s == "location" else None)
         torch.cuda.synchronize()
@@ -1392,18 +1457,18 @@ def pipeline_phase(dev, counters, card: str) -> None:
 
     # one stage with profile_dir: a trace of steps 2 to 7
     profile_dir = root / "profile"
-    run_stage(manifest_task("rir", cfg), stage_seed(PIPE_SEED, 1), train, None, num_updates=PIPE_UPDATES,
+    run_stage(manifest_task("rir", cfg, compute_dtype), stage_seed(PIPE_SEED, 1), train, None, num_updates=PIPE_UPDATES,
               device=dev, verbose=False, profile_dir=str(profile_dir))
     events = json.loads((profile_dir / "rir.json").read_text())["traceEvents"]
     kernel_events = sum(e.get("cat") == "kernel" for e in events)
     if not events:
         raise AssertionError("profile_dir wrote an empty trace")
-    phase(10, f"run_stage(rir, profile_dir=...) wrote {profile_dir / 'rir.json'}: {len(events)} events, "
+    phase(ph, f"run_stage(rir, profile_dir=...) wrote {profile_dir / 'rir.json'}: {len(events)} events, "
               f"{kernel_events} of them kernels on the card")
 
     # ---- run B: the CLI in a subprocess, a real SIGTERM in the echoed stage
     rc, sigterm_ms, log_b = terminate_when(
-        pipeline_argv(store_b), root / "run_b.log", store_b,
+        argv(store_b), root / "run_b.log", store_b,
         lambda tags: any(re.fullmatch("echoed_[0-9]+", t) for t in tags) and "echoed" not in tags, "run B")
     tags = manifest_tags(store_b)
     echoed_tags = sorted(t for t in tags if re.fullmatch("echoed_[0-9]+", t))
@@ -1414,7 +1479,7 @@ def pipeline_phase(dev, counters, card: str) -> None:
     preempted_at = int(echoed_tags[0].split("_")[1])
 
     # ---- run C: the CLI with --resume
-    rc, log_c = run_cli(pipeline_argv(store_b, "--resume"), root / "run_c.log")
+    rc, log_c = run_cli(argv(store_b, "--resume"), root / "run_c.log")
     expected = ["[pipeline] stage 'speech' complete in store — skipping",
                 "[pipeline] stage 'rir' complete in store — skipping", f"[echoed] resumed at step {preempted_at}",
                 "joint location evaluation"]
@@ -1424,7 +1489,7 @@ def pipeline_phase(dev, counters, card: str) -> None:
     a, c = StageStore(str(store_a)), StageStore(str(store_b))
     for s in stages:
         assert_bitwise(c.load_stage(s), a.load_stage(s), f"run C's final {s} against run A's")
-    phase(10, f"run B, the CLI with the same configuration, its sets synthesized from --seed: SIGTERM once the store showed a periodic echoed "
+    phase(ph, f"run B, the CLI with the same configuration, its sets synthesized from --seed: SIGTERM once the store showed a periodic echoed "
               f"tag, exit 75 {sigterm_ms:.1f} ms after the signal, the store holds {echoed_tags[0]} and no echoed "
               f"final; run C, the CLI with --resume: speech and rir skipped, echoed resumed at step "
               f"{preempted_at}; every stage's final (weights, Adam state, step, both generators; the joint "
@@ -1445,8 +1510,8 @@ def pipeline_phase(dev, counters, card: str) -> None:
             f"restore {restore_ms[s]:.1f} ms, {(wall - steps) / wall:.1%} of the wall time outside Trainer.step; "
             f"at ckpt_every {task.ckpt_every}, a save costs {save_ms / (task.ckpt_every * step_ms):.2%} of the "
             f"steps between two saves")
-    phase(10, "run A per stage: " + " | ".join(parts) + f"; phase 10 took {time.perf_counter() - t_phase:.1f} s "
-              f"({card})")
+    phase(ph, f"run A ({compute_dtype}) per stage: " + " | ".join(parts) + f"; the pipeline took "
+              f"{time.perf_counter() - t_phase:.1f} s ({card})")
     shutil.rmtree(root)
 
 
@@ -1963,10 +2028,11 @@ def otf_phase(dev, counters, card: str) -> None:
 
 
 def converge_phase(dev, card: str) -> None:
-    """Speech and RIR VQ-VAEs at full width, CONVERGE_UPDATES updates each, on a CONVERGE_ROWS set synthesized on
-    the card (VALIDATION.md's stage-convergence run). Prints the recon of the first and last 100 updates, the
-    perplexity of the last 100, the validation recon and the step time. RNG streams differ from the JAX
-    package's, so the readings are set beside its figures, not gated."""
+    """Speech and RIR VQ-VAEs at full width, CONVERGE_UPDATES updates each in FP32 and in bf16 from the same seed,
+    on a CONVERGE_ROWS set synthesized on the card (VALIDATION.md's stage-convergence run). Prints the recon of the
+    first and last 100 updates, the perplexity of the last 100, the validation recon and the step time; fails
+    where bf16's recon of the last 100 updates exceeds CONVERGE_BF16_LIMIT x FP32's. RNG streams differ from the
+    JAX package's, so the readings are set beside its figures, not gated against them."""
     import torch
     from acoustic_locating_vq_vae_torch import data
     from acoustic_locating_vq_vae_torch.train import RirVQVAETask, SpeechVQVAETask, Trainer
@@ -1979,33 +2045,464 @@ def converge_phase(dev, card: str) -> None:
         sets[name] = data.make_dataset(torch.Generator(dev).manual_seed(CONVERGE_SEED + i), n, cfg, device=dev)
         torch.cuda.synchronize()
         phase("converge", f"synthesized the {name} set, {n} rows, in {time.perf_counter() - t0:.2f} s")
-    for label, task in (("speech", SpeechVQVAETask()), ("rir", RirVQVAETask())):
-        tr = Trainer(task, device=dev, seed=CONVERGE_SEED, verbose=False)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        hist = tr.fit(sets["train"], sets["val"], num_updates=CONVERGE_UPDATES).finalize()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rec, perp, val = hist["train"]["recon_error"], hist["train"]["perplexity"], hist["val"]["recon_error"]
-        if not all(math.isfinite(float(v)) for v in (*rec, *val)):
-            raise AssertionError(f"{label}: a non-finite recon error")
-        phase("converge", f"{label} VQ-VAE, full width, {CONVERGE_UPDATES} updates on {CONVERGE_ROWS['train']} "
-                          f"synthesized rows: recon first 100 {rec[:100].mean():.4f} -> last 100 "
-                          f"{rec[-100:].mean():.4f}, perplexity of the last 100 {perp[-100:].mean():.2f}, val recon "
-                          f"{val.mean():.4f} (mean of {len(val)} eval steps on the {CONVERGE_ROWS['val']} val rows, "
-                          f"last {val[-1]:.4f}); {wall:.1f} s, {wall / CONVERGE_UPDATES * 1e3:.2f} ms a step "
-                          f"({card}); JAX on a TPU (VALIDATION.md:58-63, a yardstick of the loss only): speech "
-                          f"0.49 -> 0.19, RIR 0.97 -> 0.124")
-        del tr
-        torch.cuda.empty_cache()
+    final = {}
+    runs = [(label, cls, CONVERGE_SEED) for label, cls in (("speech", SpeechVQVAETask), ("rir", RirVQVAETask))]
+    runs += [("rir", RirVQVAETask, seed) for seed in CONVERGE_SPREAD_SEEDS]
+    for label, cls, seed in runs:
+        for dtype in ("float32", "bfloat16"):
+            tr = Trainer(cls(compute_dtype=dtype), device=dev, seed=seed, verbose=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist = tr.fit(sets["train"], sets["val"], num_updates=CONVERGE_UPDATES).finalize()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec, perp, val = hist["train"]["recon_error"], hist["train"]["perplexity"], hist["val"]["recon_error"]
+            if not all(math.isfinite(float(v)) for v in (*rec, *val)):
+                raise AssertionError(f"{label} {dtype}: a non-finite recon error")
+            final[(label, seed, dtype)] = float(rec[-100:].mean())
+            phase("converge", f"{label} VQ-VAE, {dtype}, seed {seed}, full width, {CONVERGE_UPDATES} updates on "
+                              f"{CONVERGE_ROWS['train']} synthesized rows: recon first 100 {rec[:100].mean():.4f} -> last "
+                              f"100 {rec[-100:].mean():.4f}, perplexity of the last 100 {perp[-100:].mean():.2f}, val recon "
+                              f"{val.mean():.4f} (mean of {len(val)} eval steps on the {CONVERGE_ROWS['val']} val rows, "
+                              f"last {val[-1]:.4f}); {wall:.1f} s, {wall / CONVERGE_UPDATES * 1e3:.2f} ms a step "
+                              f"({card}); JAX on a TPU (VALIDATION.md:58-63, a yardstick of the loss only): speech "
+                              f"0.49 -> 0.19, RIR 0.97 -> 0.124")
+            del tr
+            torch.cuda.empty_cache()
+        ratio = final[(label, seed, "bfloat16")] / final[(label, seed, "float32")]
+        gated = seed == CONVERGE_SEED
+        phase("converge", f"{label}, seed {seed}: bf16's recon of the last 100 updates is {ratio:.4f}x FP32's"
+                          + (f" (limit {CONVERGE_BF16_LIMIT})" if gated else " (the seed-to-seed spread, not gated)"))
+    missed = [(label, final[(label, CONVERGE_SEED, "bfloat16")] / final[(label, CONVERGE_SEED, "float32")])
+              for label in ("speech", "rir")]
+    missed = [(label, r) for label, r in missed if r > CONVERGE_BF16_LIMIT]
+    if missed:
+        raise AssertionError(f"bf16 ends above {CONVERGE_BF16_LIMIT}x FP32's recon: {missed}")
 
 
-def manifest_task(stage: str, cfg):
+# ------------------------------------------------------------------ phase 13: bf16 compute_dtype
+
+
+# phase 13's stages: (label, stage, cached, task fields); the VQ-VAE stages in both codebook modes
+BF16_STAGES = (("speech", "speech", False, {}), ("speech EMA", "speech", False, {"vq_ema": True}),
+               ("rir", "rir", False, {}), ("rir EMA", "rir", False, {"vq_ema": True}),
+               ("echoed", "echoed", False, {}), ("echoed cached", "echoed", True, {}), ("finetune", "finetune", False, {}),
+               ("location", "location", False, {}), ("joint", "location_joint", False, {}))
+BF16_SEED = 130
+# The card's bf16 gradient of a step against the CPU port's bf16 step on the same weights, batch, jitter decisions
+# and latents, ||card - CPU|| / ||CPU||, must stay within the CPU bf16 step's own distance from the same step in
+# float64 (BF16_FRACTION of it): the bound comes from the CPU, never from the card. The CPU computes XLA-CPU's
+# form (float32 sums of bf16-rounded operands); cuDNN's bf16 tensor-core kernels sum in another order and
+# precision, and read 0.38 to 0.49 of the bound on the H100 (PERF.md). Where the CPU bf16 step lies within
+# F32_REL of float64 (a float32 head behind the same codes), the card must lie within F32_REL of the CPU. That
+# the card's convs ran in bf16 at all is checked by their outputs' dtype.
+BF16_FRACTION = 1.0
+F32_REL = 1e-5
+# --converge: bf16's recon of the last 100 updates against FP32's, each stage, the same sets and updates (set
+# before any run)
+CONVERGE_BF16_LIMIT = 1.15
+# --converge also trains the RIR stage (19 and 7 ms a step) from these seeds in both dtypes, not gated: the spread
+# of the ratio from seed to seed
+CONVERGE_SPREAD_SEEDS = (22, 23)
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def vq_modules(tr) -> dict:
+    """{name: VectorQuantizer} of a trainer's model and of its frozen RIR branch (``frozen.`` names)."""
+    from acoustic_locating_vq_vae_torch.ops import VectorQuantizer
+
+    mods = {n: m for n, m in tr.model.named_modules() if isinstance(m, VectorQuantizer)}
+    if tr.frozen_rir is not None:
+        mods.update({f"frozen.{n}": m for n, m in tr.frozen_rir.named_modules() if isinstance(m, VectorQuantizer)})
+    return mods
+
+
+@contextlib.contextmanager
+def vq_inputs(mods: dict, feed: dict = None):
+    """While open, records what each quantizer of ``mods`` reads ({name: tensor}, yielded); with ``feed``, each
+    reads ``feed[name]`` straight through instead (``z + (feed - z).detach()``: the same codes, its own
+    gradient path)."""
+    seen, hooks = {}, []
+
+    def hook(name):
+        def pre(module, args):
+            z = args[0]
+            if feed is not None:
+                z = z + (feed[name].to(z.device, z.dtype) - z).detach()
+            seen[name] = z.detach()
+            return (z,) + tuple(args[1:])
+        return pre
+
+    for name, m in mods.items():
+        hooks.append(m.register_forward_pre_hook(hook(name)))
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def bf16_codes_check(mods: dict, latents: dict, codebooks: dict, label: str) -> dict:
+    """The card's VQ on the card's own float32 latent against the CPU's plain assignment of that same latent,
+    under the tie rule; returns {name: card codes (CPU)}."""
+    import torch
+    from acoustic_locating_vq_vae_torch.ops.vq import assign, nearest_codebook
+
+    codes = {}
+    for name, z in latents.items():
+        if z.dtype != torch.float32:
+            raise AssertionError(f"{label}: quantizer {name} read {z.dtype}, want float32")
+        flat = z.reshape(-1, mods[name].embedding_dim)
+        got = assign(flat, codebooks[name])[0].cpu()
+        want = nearest_codebook(flat.cpu(), codebooks[name].cpu())[0]
+        check_codes(flat.cpu(), codebooks[name].cpu(), got, want, f"{label} {name} bf16 codes card vs CPU plain")
+        codes[name] = got
+    return codes
+
+
+def bf16_stage_start(stage: str, kw: dict, composite, g, batch_size: int):
+    """An FP32 CPU trainer of ``stage`` with phase 6's or phase 8's starting weights (codebooks of latent rows),
+    and its seeded data: (trainer, data on the CPU)."""
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    task = make_stage_task(stage, batch_size=batch_size, **kw)
+    location = stage == "location"
+    tr = Trainer(task, device="cpu", seed=BF16_SEED + 1, verbose=False, composite_params=composite if location else None)
+    if stage in ("speech", "rir"):
+        data = make_batch(2 * batch_size, g, "cpu")
+        with full_fp32():
+            latent_codebook_(tr.model, task.model_inputs(make_batch(8, g, "cpu"))[0], g)
+    else:
+        data = stage_batch(2 * batch_size, g, "cpu")
+        start_stage(tr, composite, g)
+    return tr, data
+
+
+def bf16_step_card_vs_cpu(label: str, stage: str, cached: bool, kw: dict, composite, dev, counters):
+    """Phase 13 (a): one bf16 train step of a stage at CHECK_B on the card, from the FP32 step's weights, against
+    the CPU port's bf16 step and the same step in float64 on the CPU, both fed the card's latents (the same
+    codes). Checks: the kernels' launches, a finite float32 loss, float32 parameters and Adam state, the card's
+    codes on its own latent against the CPU plain assignment (tie rule), every gradient within BF16_FRACTION of
+    the CPU bf16 step's distance from float64. Returns (worst ratio, its parameter), the CPU bf16 and the card's
+    worst distance from float64, the code agreement with the FP32 step, and the launches."""
+    import dataclasses
+    import gc
+
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.ops.vq import assign
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    g = torch.Generator().manual_seed(BF16_SEED)
+    cpu32, data = bf16_stage_start(stage, kw, composite, g, CHECK_B)
+    task16 = dataclasses.replace(cpu32.task, compute_dtype="bfloat16")
+    location = stage == "location"
+    comp = composite if location else None
+    card = Trainer(task16, device=dev, seed=BF16_SEED + 1, verbose=False, composite_params=comp)
+    cpu16 = Trainer(task16, device="cpu", seed=BF16_SEED + 1, verbose=False, composite_params=comp)
+    for tr in (card, cpu16):
+        tr.model.load_state_dict(cpu32.model.state_dict())
+    ref = copy.copy(cpu32)  # the float64 reference: the same step in exact arithmetic
+    ref.model = copy.deepcopy(cpu32.model).double()
+    ref.frozen_rir = copy.deepcopy(cpu32.frozen_rir).double() if location else None
+    ref.jitter_generator = torch.Generator()
+    ref.jitter_generator.set_state(cpu32.jitter_generator.get_state())
+    card32 = copy.copy(cpu32)  # the FP32 step's codes on the card, for the agreement
+    card32.model = copy.deepcopy(cpu32.model).to(dev)
+    card32.frozen_rir = copy.deepcopy(cpu32.frozen_rir).to(dev) if location else None
+
+    resident = card.to_device(data)
+    cache = card.build_cache(resident) if cached else None
+    batch, rows = card.sample_cached(resident, cache) if cached else (card.sample(resident), None)
+    mods = vq_modules(card)
+    codebooks = {n: m._embedding.weight.detach().clone() for n, m in mods.items()}
+    if cached:  # the step reads codes: the card's latents of its cache rows, from the uncached eval loss
+        with torch.no_grad(), vq_inputs(mods) as latents:
+            card._loss(batch, False, None)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with count_by_shape(), vq_inputs(mods) as seen, conv_calls(card) as convs:
+        metrics = card.step(batch, cache=rows)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    dtypes = {dt for dt, _ in convs}
+    if dtypes != {torch.bfloat16}:
+        raise AssertionError(f"{label}: the card's bf16 step ran convolutions with outputs of {dtypes}")
+    if not cached:
+        latents = seen
+    codes = bf16_codes_check(mods, latents, codebooks, label)
+    if cached:
+        for k, v in rows.items():
+            name = "rir_model._vq" if k == "rir_codes" else "speech_model._vq"
+            if not torch.equal(v.flatten().long().cpu(), codes[name].long()):
+                raise AssertionError(f"{label}: the cache's {k} differ from the card's codes of the same rows")
+    if not math.isfinite(float(metrics["loss"])) or metrics["loss"].dtype != torch.float32:
+        raise AssertionError(f"{label}: bf16 loss {metrics['loss']}")
+    state_dtypes = [p.dtype for p in card.model.parameters()]
+    state_dtypes += [t.dtype for st in card.optimizer.state.values() for t in st.values() if t.is_floating_point()]
+    if any(dt != torch.float32 for dt in state_dtypes):
+        raise AssertionError(f"{label}: a parameter or Adam state is not float32")
+    g_card = {k: p.grad.detach().cpu() for k, p in card.model.named_parameters() if p.grad is not None}
+
+    batch_cpu = batch.map(lambda a: a.cpu())
+    rows_cpu = None if rows is None else {k: v.cpu() for k, v in rows.items()}
+    with vq_inputs(vq_modules(cpu16), latents):
+        cpu16.step(batch_cpu, cache=rows_cpu)
+    g_cpu = {k: p.grad.detach() for k, p in cpu16.model.named_parameters() if p.grad is not None}
+    batch64 = batch_cpu.map(lambda a: a.double() if a.is_floating_point() else a)
+    with vq_inputs(vq_modules(ref), latents):
+        ref._loss(batch64, True, rows_cpu)[0].backward()
+    g64 = {k: p.grad.detach() for k, p in ref.model.named_parameters() if p.grad is not None}
+    if not set(g_card) == set(g_cpu) == set(g64):
+        raise AssertionError(f"{label}: parameters with a gradient differ between the card, the CPU and float64")
+    worst, far, far_card = (0.0, ""), 0.0, 0.0
+    for k, r in g64.items():
+        d_card, d_cpu = rel_l2(g_card[k], g_cpu[k]), rel_l2(g_cpu[k], r)
+        far, far_card = max(far, d_cpu), max(far_card, rel_l2(g_card[k], r))
+        limit = F32_REL if d_cpu <= F32_REL else BF16_FRACTION * d_cpu
+        if d_card > limit:
+            raise AssertionError(f"{label}: the card's bf16 gradient of {k} lies {d_card:.3g} from the CPU's, whose "
+                                 f"distance from float64 {d_cpu:.3g} allows {limit:.3g}")
+        worst = max(worst, (d_card / d_cpu if d_cpu > F32_REL else 0.0, k))
+    with torch.no_grad(), full_fp32(), vq_inputs(vq_modules(card32)) as lat32:
+        card32._loss(batch, False, None)
+    agree = []
+    for name, z in lat32.items():
+        c32 = assign(z.reshape(-1, mods[name].embedding_dim), codebooks[name])[0].cpu()
+        agree.append(float((c32 == codes[name]).float().mean()))
+    del cpu32, cpu16, card, ref, card32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst, far, far_card, min(agree), launches
+
+
+@contextlib.contextmanager
+def unpinned():
+    """cuDNN free to pick non-deterministic algorithms inside ``Trainer.step`` (a yardstick of the pin, not a
+    switch of the program)."""
+    import torch
+    from acoustic_locating_vq_vae_torch.train import loop
+
+    saved, cudnn = loop.deterministic_convs, torch.backends.cudnn
+    loop.deterministic_convs, flag = contextlib.nullcontext, cudnn.deterministic
+    cudnn.deterministic = False
+    try:
+        yield
+    finally:
+        loop.deterministic_convs, cudnn.deterministic = saved, flag
+
+
+@contextlib.contextmanager
+def conv_calls(tr):
+    """While open, records every convolution the trainer's modules run (yields a list of (output dtype, FLOPs)):
+    2 x B x L x C_in x C_out x k forward, three times that for a layer whose weight gets a gradient (the input
+    gradient and the weight gradient)."""
+    import torch
+    from acoustic_locating_vq_vae_torch.ops import Conv1d, ConvTranspose1d
+
+    calls, hooks = [], []
+
+    def record(module, args, out):
+        w = module.weight
+        fwd = 2.0 * out.shape[0] * out.shape[2] * w.shape[0] * w.shape[1] * w.shape[2]
+        calls.append((out.dtype, fwd * (3 if torch.is_grad_enabled() and w.requires_grad else 1)))
+
+    for root in (tr.model, tr.frozen_rir):
+        for m in (root.modules() if root is not None else ()):
+            if isinstance(m, (Conv1d, ConvTranspose1d)):
+                hooks.append(m.register_forward_hook(record))
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+# kernel classes by name, the first that matches wins
+KERNEL_CLASSES = (("VQ kernels", ("vq_nearest", "vq_codebook")),
+                  ("NCHW<->NHWC", ("nchwToNhwc", "nhwcToNchw", "transpose", "Transpose")),
+                  ("casts and copies", ("copy", "convert")),
+                  ("convolution (cuDNN)", ("xmma", "implicit_gemm", "cudnn", "conv", "cutlass", "sm90_", "sm80_", "gemm")),
+                  ("Adam", ("multi_tensor_apply",)),
+                  ("elementwise and reductions", ("elementwise", "reduce")))
+
+
+def kernel_shares(top, busy_us: float) -> dict:
+    """Device time by class of kernel name (KERNEL_CLASSES, else "other"), as shares of ``busy_us``."""
+    shares = collections.Counter()
+    for name, _, us in top:
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        shares[cls] += us
+    return {k: v / busy_us for k, v in shares.items()}
+
+
+def bf16_timings(composite, dev, counters, card: str) -> dict:
+    """Phase 13 (b): every stage's train step at its own batch size, FP32 and bf16, each with and without the
+    deterministic pin (medians of 10 after 3 warm-ups); the bf16 step's launches, loss, parameters and codes (tie
+    rule) at that batch size; the TF32 speech yardstick; profiles of the speech and echoed bf16 steps. Returns
+    {label: {(dtype, pinned): ms}}."""
+    import dataclasses
+    import gc
+
+    import torch
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    times = {}
+    for label, stage, cached, kw in BF16_STAGES:
+        g = torch.Generator().manual_seed(BF16_SEED)
+        b = make_stage_task(stage).batch_size
+        cpu32, data = bf16_stage_start(stage, kw, composite, g, b)
+        state = cpu32.model.state_dict()
+        row = {}
+        for dtype in ("float32", "bfloat16"):
+            task = dataclasses.replace(cpu32.task, compute_dtype=dtype)
+            tr = Trainer(task, device=dev, seed=BF16_SEED + 1, verbose=False,
+                         composite_params=composite if stage == "location" else None)
+            tr.model.load_state_dict(state)
+            resident = tr.to_device(data)
+            cache = tr.build_cache(resident) if cached else None
+            for c in counters:
+                c.launches = 0
+            with count_by_shape():
+                row[(dtype, True)] = step_times_ms(tr, resident, cache)[0]
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+            with unpinned():
+                row[(dtype, False)] = step_times_ms(tr, resident, cache)[0]
+            if dtype == "bfloat16":
+                need = [] if cached else ["nearest_indices_cuda"]
+                if stage in ("speech", "rir"):
+                    need.append("codebook_stats_cuda" if kw.get("vq_ema") else "codebook_grad_cuda")
+                if any(launches[n] < 1 for n in need) or (cached and launches["nearest_indices_cuda"]):
+                    raise AssertionError(f"{label} bf16 timed run launched {launches}")
+                mods = vq_modules(tr)
+                codebooks = {n: m._embedding.weight.detach().clone() for n, m in mods.items()}
+                if cached:
+                    batch, rows = tr.sample_cached(resident, cache)
+                    with torch.no_grad(), vq_inputs(mods) as lat:
+                        tr._loss(batch, False, None)
+                    metrics = tr.step(batch, cache=rows)
+                else:
+                    with vq_inputs(mods) as lat:
+                        metrics = one_step(tr, resident)
+                bf16_codes_check(mods, dict(lat), codebooks, f"{label} B={b}")
+                if not math.isfinite(float(metrics["loss"])) or any(p.dtype != torch.float32 for p in tr.model.parameters()):
+                    raise AssertionError(f"{label} B={b}: bf16 loss {metrics['loss']} or a non-float32 parameter")
+                row["launches"] = launches
+                if label in ("speech", "echoed"):
+                    row["profile"] = bf16_profile(tr, resident, cache)
+            elif label == "speech":
+                row["tf32"] = yardstick_step_ms(tr, resident, tf32=True, deterministic=True)
+            del tr, resident, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        times[label] = row
+        f32, bf = row[("float32", True)], row[("bfloat16", True)]
+        phase(13, f"(b) {label} train step at B={b}, full width, median of 10: FP32 {f32:.4f} ms, bf16 {bf:.4f} ms "
+                  f"({f32 / bf:.2f}x); without the deterministic pin FP32 {row[('float32', False)]:.4f}, bf16 "
+                  f"{row[('bfloat16', False)]:.4f} ms; bf16 launches over its 13 pinned steps {row['launches']}; "
+                  f"bf16 step at B={b}: finite float32 loss, float32 parameters, codes under the tie rule"
+                  + (f"; TF32 yardstick {row['tf32']:.4f} ms" if "tf32" in row else "") + f" ({card})")
+    return times
+
+
+def bf16_profile(tr, resident, cache) -> str:
+    """A 3-step torch.profiler breakdown of a bf16 step: top kernels, the shares by class (the convolutions,
+    the NCHW<->NHWC transposes, casts, elementwise kernels, the VQ kernels) and the convolutions' TFLOP/s."""
+    with conv_calls(tr) as convs:
+        one_step(tr, resident, cache)
+    flops = sum(f for _, f in convs)
+    wall_us, busy_us, top = device_breakdown(lambda d: one_step(tr, d, cache), [resident] * 3, top=10_000)
+    if busy_us == 0:
+        return "the profiler recorded no device time"
+    shares = kernel_shares(top, busy_us)
+    conv_s = shares.get("convolution (cuDNN)", 0.0) * busy_us / 3 / 1e6
+    tops = "; ".join(f"{k[:60]} x{c} {t / 3 / 1e3:.3f} ms ({t / busy_us:.1%})" for k, c, t in top[:6])
+    return (f"per step {wall_us / 3 / 1e3:.4f} ms host clock, card busy {busy_us / 3 / 1e3:.4f} ms "
+            f"({busy_us / wall_us:.1%}); by class: "
+            + ", ".join(f"{k} {v:.2%}" for k, v in sorted(shares.items(), key=lambda kv: -kv[1]))
+            + f"; convolutions {flops / 1e12:.3f} TFLOP a step"
+            + (f" at {flops / conv_s / 1e12:.1f} TFLOP/s" if conv_s else "") + f"; top kernels: {tops}")
+
+
+def bf16_serving(dev, cfg, paths, specs, counters, card: str) -> None:
+    """Phase 13 (c): the joint and frozen localizers of phase 3's weights built from bf16 tasks serve B = 8 and
+    64 on the card: the kernel's launches, latency beside FP32 serving of the same weights, and the largest
+    |delta theta| (wrap-aware) against FP32 serving on the same inputs."""
+    import dataclasses
+
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import make_serving_fn
+
+    for name, (task, params, comp, _) in paths.items():
+        serve = {dt: make_serving_fn(dataclasses.replace(task, compute_dtype=dt), params, cfg, comp, device=dev)
+                 for dt in ("float32", "bfloat16")}
+        parts = []
+        for b in (8, SERVE_B):
+            inputs = [s.to(dev) for s in specs(b, 20)]
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            with count_by_shape():
+                outs = {dt: [f(x) for x in inputs[:4]] for dt, f in serve.items()}
+            torch.cuda.synchronize()
+            if counters[0].launches < 8:
+                raise AssertionError(f"{name} serving launched vq_nearest {counters[0].launches} times for 8 calls")
+            dth = max(float((torch.remainder(a[0] - f[0] + math.pi, 2 * math.pi) - math.pi).abs().max())
+                      for a, f in zip(outs["bfloat16"], outs["float32"]))
+            for theta, radius, coords in outs["bfloat16"]:
+                if not all(bool(torch.isfinite(t).all()) for t in (theta, radius, coords)):
+                    raise AssertionError(f"{name} bf16 serving returned a non-finite value")
+            lat = {dt: serve_latency_ms(f, inputs) for dt, f in serve.items()}
+            parts.append(f"B={b} bf16 {lat['bfloat16']:.4f} ms, FP32 {lat['float32']:.4f} ms, largest |dtheta| "
+                         f"against FP32 {dth:.4g} rad")
+            del inputs, outs
+        phase(13, f"(c) {name} localizer served from a bf16 task (head and VQ in FP32), median of 20: "
+                  + "; ".join(parts) + f" ({card})")
+
+
+def bf16_phase(dev, counters, card: str, composite, paths, cfg, specs) -> None:
+    """Phase 13: bf16 compute_dtype: (a) a bf16 step per stage card vs CPU, (b) step times beside FP32 and
+    profiles, (c) serving, (d) the pipeline in bf16 with preemption and resume."""
+    t_phase = time.perf_counter()
+    rows = []
+    for label, stage, cached, kw in BF16_STAGES:
+        worst, far, far_card, agree, launches = bf16_step_card_vs_cpu(label, stage, cached, kw, composite, dev, counters)
+        need = [] if cached else ["nearest_indices_cuda"]
+        if stage in ("speech", "rir"):
+            need.append("codebook_stats_cuda" if kw else "codebook_grad_cuda")
+        if any(launches[n] < 1 for n in need):
+            raise AssertionError(f"{label} bf16 step launched {launches}")
+        rows.append(f"{label} {worst[0]:.3g} ({worst[1]}), float64 CPU {far:.3g} card {far_card:.3g}, "
+                    f"codes {agree:.4f}, launches {launches}")
+    phase(13, f"(a) one bf16 step per stage at full width, B={CHECK_B}, card vs the CPU port's bf16 step on the same "
+              f"weights, batch and latents: every convolution's output bf16, every gradient within {BF16_FRACTION} "
+              f"of the CPU step's distance from float64 (||.|| / ||.||); per stage the worst ratio, the CPU's and the card's worst distance from "
+              f"float64, the share of codes equal to the FP32 step's, the launches: " + "; ".join(rows)
+              + f"; phase 13 (a) took {time.perf_counter() - t_phase:.1f} s")
+    times = bf16_timings(composite, dev, counters, card)
+    for label in ("speech", "echoed"):
+        phase(13, f"(b) {label} bf16 step profiled: {times[label]['profile']} ({card})")
+    bf16_serving(dev, cfg, paths, specs, counters, card)
+    pipeline_phase(dev, counters, card, compute_dtype="bfloat16", ph=13)
+    phase(13, f"phase 13 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def manifest_task(stage: str, cfg, compute_dtype: str = "float32"):
     """The task of ``stage`` as phase 10's pipeline builds it (preset fixed, the joint stage with the range
     output and a tail term, a checkpoint every PIPE_CKPT_EVERY)."""
     from acoustic_locating_vq_vae_torch.train import make_task
 
-    kw = dict(config=cfg, width_scale=PIPE_WIDTH, compat_vq_flatten=False, ckpt_every=PIPE_CKPT_EVERY)
+    kw = dict(config=cfg, width_scale=PIPE_WIDTH, compat_vq_flatten=False, ckpt_every=PIPE_CKPT_EVERY,
+              compute_dtype=compute_dtype)
     kw.update({"finetune": {"commitment_weight": 0.25}, "location": {"input_mode": "quantized"},
                "location_joint": {"predict_radius": True, "tail_weight": 0.5}}.get(stage, {}))
     return make_task(stage, **kw)
@@ -2145,6 +2642,14 @@ def main() -> int:
                  f"codes card vs CPU differ on {mism} tie rows (gap {gap}); "
                  f"{int(same.sum())}/8 samples with equal codes, max |card - CPU| {errs}")
 
+    counters = (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda)
+    if BF16_ONLY in sys.argv[1:]:
+        composite = composite_weights(make_stage_task("echoed"), torch.Generator().manual_seed(STAGE_SEED))
+        stage_phase(composite, dev, counters)
+        bf16_phase(dev, counters, card, composite, paths, cfg, specs)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
     # ---- phase 4: timings on the card
     for name, (serve_gpu, _) in outs.items():
         lat = {}
@@ -2176,7 +2681,6 @@ def main() -> int:
     accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
 
     # ---- phase 6: the training slice at full width, card vs CPU
-    counters = (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda)
     train_launches = {}
     grad_worst = {}
     default_differs = 0
@@ -2243,17 +2747,7 @@ def main() -> int:
 
     # ---- phase 8: the composite and location stages at full width, card vs CPU
     composite = composite_weights(make_stage_task("echoed"), torch.Generator().manual_seed(STAGE_SEED))
-    stage_worst = {}
-    for label, stage, cached, nearest in STAGES:
-        task = make_stage_task(stage, batch_size=CHECK_B)
-        got, worst, worst_tf32 = stage_step_card_vs_cpu(label, task, cached, composite, dev, counters, STAGE_SEED)
-        want = {"nearest_indices_cuda": nearest, "codebook_grad_cuda": 0, "codebook_stats_cuda": 0}
-        if got != want:
-            raise AssertionError(f"{label} train step launched {got}, want {want}")
-        stage_worst[label] = worst, worst_tf32
-    phase(8, f"worst gradient distance from float64 over each gradient's max, card step | TF32 control (limit "
-             f"{LOCATION_GRAD_RTOL} for the location stage, {GRAD_RTOL} for the others): "
-             + ", ".join(f"{label} {w[0]:.3g} ({w[1]}) | {t[0]:.3g}" for label, (w, t) in stage_worst.items()))
+    stage_phase(composite, dev, counters)
 
     # ---- phase 9: the stages' timings on the card
     stage_runs = {}
@@ -2276,6 +2770,9 @@ def main() -> int:
 
     # ---- phase 12: on-the-fly training with run K's options: the bank, labels, step times, the recipe
     otf_phase(dev, counters, card)
+
+    # ---- phase 13: bf16 compute_dtype: every stage card vs CPU, step times, serving, the pipeline resumed
+    bf16_phase(dev, counters, card, composite, paths, cfg, specs)
 
     # one entry for each kernel and shape that was timed and that the main path ran, with the launches it
     # made at that shape; every kernel of the path has an entry

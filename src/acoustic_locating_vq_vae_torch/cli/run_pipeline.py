@@ -100,6 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vq-flatten", choices=["compat", "vectors"], default=None,
                    help="compat = the reference's memory-order view(-1, D) VQ flatten; vectors = "
                    "channels-last D-vectors (default: the preset's)")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="conv-stack compute dtype of every stage and of the evaluations (parameters, losses, the "
+                   "VQ assignment and the location head stay float32)")
     p.add_argument("--joint-location", action="store_true",
                    help="append the joint stage: the RIR encoder fine-tuned jointly with a fresh "
                    "location head on the angle loss, seeded from the fine-tuned composite")
@@ -348,7 +351,8 @@ def main(argv=None) -> None:
         updates={k: args.updates for k in stages} if args.updates else None,
         preset=args.preset, vq_ema=args.vq_ema, commitment_weight=args.commitment_weight,
         location_input_mode=args.location_input_mode, location_target_mode=args.location_target_mode,
-        compat_vq_flatten=flatten, joint_location=args.joint_location, predict_radius=args.predict_radius,
+        compat_vq_flatten=flatten, compute_dtype=args.compute_dtype, joint_location=args.joint_location,
+        predict_radius=args.predict_radius,
         joint_task_kwargs=(
             {"tail_weight": args.tail_weight, "tail_frac": args.tail_frac} if args.tail_weight else None
         ),
@@ -364,6 +368,7 @@ def main(argv=None) -> None:
         config=config, width_scale=args.width_scale,
         input_mode=args.location_input_mode or ("quantized" if fixed else "encodings"),
         target_mode=args.location_target_mode or "normalized_angle", compat_vq_flatten=flatten,
+        compute_dtype=args.compute_dtype,
     )
     metrics = evaluate_location(task, res["location"][0], res["finetune"][0], data, device=args.device)
     print("final location evaluation:", json.dumps(metrics, indent=2), flush=True)
@@ -380,6 +385,7 @@ def main(argv=None) -> None:
         joint_task = JointLocationTask(
             config=config, width_scale=args.width_scale, compat_vq_flatten=flatten,
             target_mode=args.location_target_mode or "sincos", predict_radius=args.predict_radius,
+            compute_dtype=args.compute_dtype,
         )
         jm = evaluate_joint_location(joint_task, res["location_joint"][0], data, device=args.device)
         print("joint location evaluation:", json.dumps(jm, indent=2), flush=True)

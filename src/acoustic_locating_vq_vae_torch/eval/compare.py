@@ -13,7 +13,8 @@ same metric names as the JAX package:
   * for a head with a range output, the RMSE and median error of the radius.
 
 Weights are the port's state dicts; the head predicts in full float32 on
-``device`` (the card unless ``device="cpu"``), in chunks of ``batch_size``.
+``device`` (the card unless ``device="cpu"``), in chunks of ``batch_size``;
+the RIR branch's convs run in the task's ``compute_dtype``.
 The metrics are computed on the host.
 """
 

@@ -4,7 +4,10 @@ source radius, 3-D coordinates) out.
 Counterpart of ``acoustic_locating_vq_vae_tpu/eval/serving.py:91-152``
 ``make_serving_fn`` with ``from_audio=False``; the STFT frontend, the
 artifact export and the store reading come in later slices. Weights enter as
-the port's state dicts (see ``eval/weights.py:params_from_jax``).
+the port's state dicts (see ``eval/weights.py:params_from_jax``). A task with
+``compute_dtype="bfloat16"`` serves its RIR branch's convs in bf16, as JAX's
+closure does through ``task.build_model()`` (JAX ``serving.py:112``); the VQ
+assignment and the head stay full float32 (``full_fp32``).
 """
 
 from __future__ import annotations

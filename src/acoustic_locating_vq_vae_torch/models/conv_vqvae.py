@@ -2,8 +2,16 @@
 
 Counterpart of ``acoustic_locating_vq_vae_tpu/models/conv_vqvae.py`` (reference:
 vq_vae/convolutional_vq_vae.py:18-105, convolutional_encoder.py:7-44,
-deconvolutional_decoder.py:7-79). The bf16 ``compute_dtype`` and sequence
-sharding are not ported yet.
+deconvolutional_decoder.py:7-79), without the sequence sharding.
+
+``compute_dtype`` (None for float32, or ``torch.bfloat16``; JAX ``:144, 178,
+182, 205``) is the conv stacks' compute dtype: every conv computes in it (see
+``ops/conv.py``), the ReLUs and skips run in it, and the parameters stay
+float32. The pre-VQ latent is cast to the codebook's float32 before the
+quantizer (JAX ``:231, 237``), so the assignment is exact float32 and the VQ
+loss is float32; the decoder reads that float32 latent and its output is cast
+to its parameters' float32 (JAX ``:110``), so losses are float32. (A model
+moved to float64 as a reference computes in float64 throughout.)
 
 Layout is channels-first ``(B, C, L)`` throughout, the public layout of both
 packages; module attributes carry the reference's state-dict keys
@@ -41,14 +49,16 @@ class ConvolutionalEncoder(nn.Module):
         compat_init: bool = True,
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         # the reference quirk needs a first block to have mutated x1 in place
         self.skip_relu = compat_inplace_relu and num_residual_layers > 0
-        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator)
+        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator, compute_dtype=compute_dtype)
         self._residual_stack = ResidualStack(
             num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
             compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
+            compute_dtype=compute_dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,7 +71,8 @@ class ConvolutionalEncoder(nn.Module):
 
 class DeconvolutionalDecoder(nn.Module):
     """[Jitter] -> Conv3 -> ResidualStack -> 2 x (ConvT3 + ReLU) -> ConvT3
-    (deconvolutional_decoder.py:62-79): ``(B, D, L) -> (B, C_out, L)``."""
+    (deconvolutional_decoder.py:62-79): ``(B, D, L) -> (B, C_out, L)``, the
+    output float32 whatever ``compute_dtype``."""
 
     def __init__(
         self,
@@ -76,17 +87,19 @@ class DeconvolutionalDecoder(nn.Module):
         compat_init: bool = True,
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        dt = dict(compute_dtype=compute_dtype)
         self._jitter = Jitter(jitter_probability) if use_jitter else None
-        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator)
+        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator, **dt)
         self._residual_stack = ResidualStack(
             num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
-            compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
+            compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator, **dt,
         )
-        self._conv_trans_1 = ConvTranspose1d(num_hiddens, num_hiddens, generator=generator)
-        self._conv_trans_2 = ConvTranspose1d(num_hiddens, num_hiddens, generator=generator)
-        self._conv_trans_3 = ConvTranspose1d(num_hiddens, out_channels, generator=generator)
+        self._conv_trans_1 = ConvTranspose1d(num_hiddens, num_hiddens, generator=generator, **dt)
+        self._conv_trans_2 = ConvTranspose1d(num_hiddens, num_hiddens, generator=generator, **dt)
+        self._conv_trans_3 = ConvTranspose1d(num_hiddens, out_channels, generator=generator, **dt)
 
     def forward(
         self, x: torch.Tensor, train: bool = True, generator: Optional[torch.Generator] = None
@@ -96,7 +109,8 @@ class DeconvolutionalDecoder(nn.Module):
         x = self._residual_stack(self._conv_1(x))
         x = F.relu(self._conv_trans_1(x))
         x = F.relu(self._conv_trans_2(x))
-        return self._conv_trans_3(x)
+        out = self._conv_trans_3(x)
+        return out.to(self._conv_trans_3.weight.dtype)  # the parameters' float32: losses accumulate in it
 
 
 class ConvolutionalVQVAE(nn.Module):
@@ -110,7 +124,8 @@ class ConvolutionalVQVAE(nn.Module):
     (the latent permuted to ``(B, L, D)`` first). Both give B*L rows.
 
     ``decoder=False`` builds the encode half only (the localizers' RIR
-    branch)."""
+    branch). ``compute_dtype`` goes to the encoder, the pre-VQ conv and the
+    decoder (see the module docstring)."""
 
     def __init__(
         self,
@@ -134,17 +149,19 @@ class ConvolutionalVQVAE(nn.Module):
         vq_ema_reset: float = 0.0,
         decoder: bool = True,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        dt = dict(compute_dtype=compute_dtype)
         self.embedding_dim = embedding_dim
         self.num_embeddings = num_embeddings
         self.compat_vq_flatten = compat_vq_flatten
         self.encoder_average_pooling = encoder_average_pooling
         self._encoder = ConvolutionalEncoder(
             in_channels, num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
-            compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
+            compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator, **dt,
         )
-        self._pre_vq_conv = Conv1d(num_hiddens, embedding_dim, 3, padding=1, generator=generator)
+        self._pre_vq_conv = Conv1d(num_hiddens, embedding_dim, 3, padding=1, generator=generator, **dt)
         self._vq = VectorQuantizer(
             num_embeddings, embedding_dim, commitment_cost, generator=generator,
             ema=vq_ema, ema_decay=vq_ema_decay, ema_reset_threshold=vq_ema_reset,
@@ -155,18 +172,20 @@ class ConvolutionalVQVAE(nn.Module):
             embedding_dim, out_channels if out_channels is not None else in_channels, num_hiddens,
             num_residual_layers, num_residual_hiddens, use_jitter=use_jitter,
             jitter_probability=jitter_probability, tied=tied, compat_init=compat_init,
-            compat_inplace_relu=compat_inplace_relu, generator=generator,
+            compat_inplace_relu=compat_inplace_relu, generator=generator, **dt,
         )
 
     def pre_vq_latent(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, C, L) -> (B, D, L)``: the latent the quantizer reads."""
-        return self._pre_vq_conv(self._encoder(x))
+        """``(B, C, L) -> (B, D, L)``: the latent the quantizer reads, in the
+        codebook's dtype (float32)."""
+        return self._pre_vq_conv(self._encoder(x)).to(self._vq._embedding.weight.dtype)
 
     def _encode(self, x: torch.Tensor, train_vq: bool, need_encodings: bool = False) -> VQOutput:
         """VQ output whose ``quantized`` is channels-first ``(B, D, L)``."""
-        z = self.pre_vq_latent(x)
+        z = self._pre_vq_conv(self._encoder(x))
         if self.encoder_average_pooling:
             z = torch.mean(z, dim=2, keepdim=True)  # over time (convolutional_vq_vae.py:96-97)
+        z = z.to(self._vq._embedding.weight.dtype)  # the assignment in float32 whatever the compute dtype
         if self.compat_vq_flatten:
             # the quantizer's reshape(-1, D) of the contiguous (B, D, L) latent
             # is the reference's view(-1, D)

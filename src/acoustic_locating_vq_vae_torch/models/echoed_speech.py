@@ -19,6 +19,10 @@ composite never runs: the state dict of a composite grafted from the speech
 and RIR stages (``train/tasks.py:graft_pretrained``) then has the keys of the
 reference's module, which the JAX ``eval/torch_export.py:echoed_state_dict``
 also emits (``rir_model.*``, ``speech_model.*``, ``_decoder.*``).
+
+``compute_dtype`` is the composite decoder's (JAX ``:46, 84``); the task
+builds both branches with the same one (JAX ``train/tasks.py:262-297``). The
+branches hand the decoder float32 quantized latents.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ class EchoedSpeechReconModel(nn.Module):
         compat_init: bool = True,
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.rir_model = rir_model
@@ -62,7 +67,7 @@ class EchoedSpeechReconModel(nn.Module):
             speech_model.embedding_dim + rir_model.embedding_dim, out_channels, num_hiddens,
             num_residual_layers, num_residual_hiddens, use_jitter=use_jitter,
             jitter_probability=jitter_probability, tied=tied, compat_init=compat_init,
-            compat_inplace_relu=compat_inplace_relu, generator=generator,
+            compat_inplace_relu=compat_inplace_relu, generator=generator, compute_dtype=compute_dtype,
         )
 
     def forward(

@@ -14,6 +14,9 @@ reference quirks as the compat defaults:
   reference's first ``ReLU(inplace=True)`` turns its skip into ``relu(x)``, so
   the block computes ``relu(x) + conv2(relu(conv1(relu(x))))``. Here no ReLU
   is in place; the skip is computed explicitly.
+
+``compute_dtype`` goes to every conv (JAX ``ops/residual.py:44-59,75-97``); the
+ReLUs and the skips run in the dtype of what they receive, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,22 +43,28 @@ class Residual(nn.Module):
         compat_init: bool = True,
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.compat_inplace_relu = compat_inplace_relu
         self._block = nn.Sequential(
             nn.ReLU(),
-            Conv1d(num_hiddens, num_residual_hiddens, 3, padding=1, bias=False, generator=generator),
+            Conv1d(num_hiddens, num_residual_hiddens, 3, padding=1, bias=False, generator=generator,
+                   compute_dtype=compute_dtype),
             nn.ReLU(),
             Conv1d(
                 num_residual_hiddens, num_hiddens, 1, padding=0, bias=False,
                 init_mode="torch_default" if compat_init else "kaiming", generator=generator,
+                compute_dtype=compute_dtype,
             ),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        skip = F.relu(x) if self.compat_inplace_relu else x
-        return skip + self._block(x)
+        # one ReLU feeds the block and the compat skip, as in JAX: in bf16 the
+        # gradients of its two uses are summed (and rounded) before the ReLU
+        rx = F.relu(x)
+        h = self._block[1:](rx)
+        return (rx if self.compat_inplace_relu else x) + h
 
 
 class ResidualStack(nn.Module):
@@ -70,11 +79,13 @@ class ResidualStack(nn.Module):
         compat_init: bool = True,
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
 
         def block():
-            return Residual(num_hiddens, num_residual_hiddens, compat_init, compat_inplace_relu, generator)
+            return Residual(num_hiddens, num_residual_hiddens, compat_init, compat_inplace_relu, generator,
+                            compute_dtype)
 
         if tied:
             self._layers = nn.ModuleList([block()] * num_residual_layers)

@@ -46,7 +46,11 @@ checkpoints (:817-918):
   periodic checkpoint;
 * ``profile_dir`` traces steady-state steps with ``torch.profiler``;
 * convolutions and matrix products run in full float32 (TF32 off), the
-  convolutions with cuDNN's deterministic algorithms (``utils/device.py``).
+  convolutions with cuDNN's deterministic algorithms (``utils/device.py``);
+  a task with ``compute_dtype="bfloat16"`` runs its conv stacks in bf16 under
+  the same deterministic pin (cuDNN raises where it has no deterministic
+  algorithm; nothing falls back to float32), while the parameters, Adam's
+  state, the checkpoints, the cache's codes and the losses stay float32.
 
 The mesh and host-staged data come in later slices.
 """

@@ -13,9 +13,10 @@ loads both -> encoder_training_echoed_model.py:43 reloads the composite ->
 train_location.py:38 reads the composite for frozen latents), and the joint
 stage's bank-pretrain and exact-polish recipe (:func:`fit_joint_recipe`).
 
-Not ported here: the mesh and ``sequence_axis`` (one device), ``vq_backend``
-(a CUDA tensor always runs the port's kernel, a CPU tensor its plain
-version) and bf16 ``compute_dtype``.
+``compute_dtype`` goes to every stage's task, the joint stage's included
+(JAX :211, :271, :416). Not ported here: the mesh and ``sequence_axis`` (one
+device) and ``vq_backend`` (a CUDA tensor always runs the port's kernel, a CPU
+tensor its plain version).
 """
 
 from __future__ import annotations
@@ -175,6 +176,7 @@ def run_pipeline(
     location_input_mode: Optional[str] = None,
     location_target_mode: Optional[str] = None,
     compat_vq_flatten: Optional[bool] = None,
+    compute_dtype: str = "float32",
     joint_location: bool = False,
     predict_radius: bool = False,
     resume: bool = False,
@@ -192,7 +194,9 @@ def run_pipeline(
     :class:`Trainer` (``device``, ``cache_frozen``, ``keep_checkpoints``,
     ``profile_dir``, ``log_every``, ``verbose``, ``on_the_fly``,
     ``synth_kwargs``). Stage ``i`` trains from :func:`stage_seed` ``(seed,
-    i)``. With ``on_the_fly`` every stage synthesizes its training batches
+    i)``. ``compute_dtype`` (``"float32"`` or ``"bfloat16"``) is every
+    stage's conv-stack compute dtype; the state dicts are float32 either way,
+    so a store written in one loads in the other. With ``on_the_fly`` every stage synthesizes its training batches
     (``train_data`` may be None) from ``synth_kwargs``, a RIR bank there
     included; ``joint_bank_updates`` trains the joint stage by
     :func:`fit_joint_recipe`: that many updates from the bank, then the
@@ -225,7 +229,8 @@ def run_pipeline(
 
     updates = updates or {}
     results: Dict[str, Tuple[Dict[str, torch.Tensor], Optional[TrainHistory]]] = {}
-    kw: Dict[str, Any] = dict(config=config, width_scale=width_scale, compat_vq_flatten=compat_vq_flatten)
+    kw: Dict[str, Any] = dict(config=config, width_scale=width_scale, compat_vq_flatten=compat_vq_flatten,
+                              compute_dtype=compute_dtype)
     if ckpt_every is not None:
         kw["ckpt_every"] = ckpt_every
 
@@ -290,7 +295,7 @@ def run_pipeline(
     if joint_location:
         joint = JointLocationTask(
             config=config, width_scale=width_scale, compat_vq_flatten=compat_vq_flatten,
-            target_mode=joint_target_mode, predict_radius=predict_radius,
+            compute_dtype=compute_dtype, target_mode=joint_target_mode, predict_radius=predict_radius,
             **({"ckpt_every": ckpt_every} if ckpt_every is not None else {}),
             **(joint_task_kwargs or {}),
         )

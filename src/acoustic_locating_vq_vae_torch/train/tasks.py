@@ -23,8 +23,15 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/train/tasks.py``:
   the task's type at loop.py:245, :304 and :798).
 
 The port's tasks take a model and a batch (weights live in the modules, not
-in a parameter tree), and the stage handoff works on state dicts. bf16
-``compute_dtype`` and sequence sharding are not ported yet.
+in a parameter tree), and the stage handoff works on state dicts. Sequence
+sharding is not ported.
+
+Every stage takes ``compute_dtype`` (JAX :138, :203, :314, :428, :637):
+``"float32"`` (the default) or ``"bfloat16"``, the compute dtype of its conv
+stacks (``models/conv_vqvae.py``); the location stage's frozen RIR branch and
+the joint stage's RIR encoder compute in it, the location head stays float32.
+Parameters, optimizer state, losses and metrics stay float32, and the VQ
+assignment is exact float32 on the latent cast back to float32.
 """
 
 from __future__ import annotations
@@ -56,6 +63,17 @@ def _scale(v: int, width_scale: float, floor: int = 4) -> int:
     return max(floor, int(v * width_scale))
 
 
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def _dtype(name: str) -> Optional[torch.dtype]:
+    """The conv stacks' compute dtype of a task's ``compute_dtype`` (JAX
+    :104-105): None (float32) or ``torch.bfloat16``; raises on any other name."""
+    if name not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {name!r}")
+    return _DTYPES[name]
+
+
 @dataclasses.dataclass(frozen=True)
 class Task:
     """A training stage: model + batch wiring + loss."""
@@ -66,6 +84,9 @@ class Task:
     num_updates: int
     eval_every: int = 500  # reference's n_samples_test_on_validation_set
     ckpt_every: int = 1000
+
+    def __post_init__(self):
+        _dtype(getattr(self, "compute_dtype", "float32"))  # an unknown compute dtype fails here, not mid-stage
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> torch.nn.Module:
         raise NotImplementedError
@@ -146,12 +167,14 @@ class SpeechVQVAETask(Task):
     num_updates: int = 15000
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0  # <1 for smoke/test configs
+    compute_dtype: str = "float32"  # "bfloat16": the conv stacks in bf16
     vq_ema: bool = False  # EMA codebook (option; gradient mode = reference parity)
     # None resolves to the reference's memory-order flatten (no sequence sharding in the port)
     compat_vq_flatten: Optional[bool] = None
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
-        return speech_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, vq_ema=self.vq_ema)
+        return speech_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, vq_ema=self.vq_ema,
+                            compute_dtype=self.compute_dtype)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:
@@ -177,12 +200,13 @@ class RirVQVAETask(Task):
     num_updates: int = 15000
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0
+    compute_dtype: str = "float32"
     vq_ema: bool = False
     compat_vq_flatten: Optional[bool] = None  # None: the reference's memory-order flatten
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
         return rir_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, decoder=True,
-                         vq_ema=self.vq_ema)
+                         vq_ema=self.vq_ema, compute_dtype=self.compute_dtype)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:
@@ -205,18 +229,19 @@ def rir_model(
     generator: Optional[torch.Generator] = None,
     decoder: bool = False,
     vq_ema: bool = False,
+    compute_dtype: str = "float32",
 ) -> ConvolutionalVQVAE:
     """The RIR VQ-VAE (tasks.py:221-237, :274-279, :682-688): the transposed
     spectrogram's 500 frames as channels, H = 1024, 2 tied residual layers of
     width 64, D = 64, K = 1024, all scaled by ``width_scale``; no jitter, one
-    output channel. The localizers' branch is its encode half
-    (``decoder=False``)."""
+    output channel; its convs in ``compute_dtype``. The localizers' branch is
+    its encode half (``decoder=False``)."""
     s = lambda v: _scale(v, width_scale)
     return ConvolutionalVQVAE(
         in_channels=config.num_frames, num_hiddens=s(1024), embedding_dim=s(64),
         num_residual_layers=2, num_residual_hiddens=s(64), commitment_cost=0.25,
         num_embeddings=s(1024), compat_vq_flatten=compat_vq_flatten, use_jitter=False,
-        out_channels=1, vq_ema=vq_ema, decoder=decoder, generator=generator,
+        out_channels=1, vq_ema=vq_ema, decoder=decoder, generator=generator, compute_dtype=_dtype(compute_dtype),
     )
 
 
@@ -226,33 +251,36 @@ def speech_model(
     compat_vq_flatten: bool,
     generator: Optional[torch.Generator] = None,
     vq_ema: bool = False,
+    compute_dtype: str = "float32",
 ) -> ConvolutionalVQVAE:
     """The speech VQ-VAE (tasks.py:150-170, :280-286): 201 -> H = 1024, 3 tied
     residual layers of width 1024, D = 128, K = 1024, all scaled by
-    ``width_scale``; decoder jitter p = 0.25."""
+    ``width_scale``; decoder jitter p = 0.25; its convs in ``compute_dtype``."""
     s = lambda v: _scale(v, width_scale)
     return ConvolutionalVQVAE(
         in_channels=config.num_freq, num_hiddens=s(1024), embedding_dim=s(128),
         num_residual_layers=3, num_residual_hiddens=s(1024), commitment_cost=0.25,
         num_embeddings=s(1024), compat_vq_flatten=compat_vq_flatten, use_jitter=True,
-        vq_ema=vq_ema, generator=generator,
+        vq_ema=vq_ema, generator=generator, compute_dtype=_dtype(compute_dtype),
     )
 
 
 def _echoed_model(
     config: DatasetConfig, width_scale: float, compat_vq_flatten: bool,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, compute_dtype: str = "float32",
 ) -> EchoedSpeechReconModel:
     """The composite (tasks.py:260-299): both branches in one flatten mode,
     so the stage handoff keeps the codes' meaning, and the decoder of
     train_echoed_speech.py:23-27 (H = 1024, 2 tied residual layers of width
-    1024, jitter on, the spectrogram's bins out)."""
+    1024, jitter on, the spectrogram's bins out); the branches and the
+    decoder in one ``compute_dtype``."""
     s = lambda v: _scale(v, width_scale)
     return EchoedSpeechReconModel(
-        rir_model=rir_model(config, width_scale, compat_vq_flatten, generator, decoder=True),
-        speech_model=speech_model(config, width_scale, compat_vq_flatten, generator),
+        rir_model=rir_model(config, width_scale, compat_vq_flatten, generator, decoder=True,
+                            compute_dtype=compute_dtype),
+        speech_model=speech_model(config, width_scale, compat_vq_flatten, generator, compute_dtype=compute_dtype),
         out_channels=config.num_freq, num_hiddens=s(1024), num_residual_layers=2,
-        num_residual_hiddens=s(1024), use_jitter=True, generator=generator,
+        num_residual_hiddens=s(1024), use_jitter=True, generator=generator, compute_dtype=_dtype(compute_dtype),
     )
 
 
@@ -267,6 +295,7 @@ class EchoedSpeechTask(Task):
     num_updates: int = 15000
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0
+    compute_dtype: str = "float32"
     train_encoder: bool = False
     # Weight on the branch VQ losses (their commitment terms) added to the
     # recon loss; 0.0 is the reference's recon-only loss. It anchors unfrozen
@@ -277,7 +306,7 @@ class EchoedSpeechTask(Task):
     compat_vq_flatten: Optional[bool] = None
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> EchoedSpeechReconModel:
-        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator)
+        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, self.compute_dtype)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:
@@ -367,6 +396,7 @@ class LocationTask(Task):
     num_updates: int = 15000
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0
+    compute_dtype: str = "float32"  # the frozen RIR branch's; the head stays float32
     output_dim: int = 1
     # "encodings": flattened one-hot code assignments (the reference input);
     # "quantized": the RIR-branch quantized latents
@@ -388,12 +418,13 @@ class LocationTask(Task):
 
     def build_composite(self, generator: Optional[torch.Generator] = None) -> EchoedSpeechReconModel:
         """The composite whose RIR branch feeds the head (train_location.py:38)."""
-        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator)
+        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, self.compute_dtype)
 
     def build_rir_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
         """The composite's RIR branch without its decoder: all the frozen
         localizer runs."""
-        return rir_model(self.config, self.width_scale, resolved_vq_flatten(self), generator)
+        return rir_model(self.config, self.width_scale, resolved_vq_flatten(self), generator,
+                         compute_dtype=self.compute_dtype)
 
     def encodings_from_composite(self, rir: ConvolutionalVQVAE, echoed_spec: torch.Tensor) -> torch.Tensor:
         """Frozen RIR-branch features: one-hot encodings reshaped (B, F, K),
@@ -500,6 +531,7 @@ class JointLocationTask(Task):
     num_updates: int = 15000
     config: DatasetConfig = DatasetConfig()
     width_scale: float = 1.0
+    compute_dtype: str = "float32"  # the RIR encoder's; the head stays float32
     compat_vq_flatten: bool = False  # one-hot-free gradients need vectors
     target_mode: str = "sincos"
     output_dim: int = 1
@@ -514,7 +546,8 @@ class JointLocationTask(Task):
     tail_frac: float = 0.125
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> JointLocationModel:
-        rir = rir_model(self.config, self.width_scale, self.compat_vq_flatten, generator)
+        rir = rir_model(self.config, self.width_scale, self.compat_vq_flatten, generator,
+                        compute_dtype=self.compute_dtype)
         out_dim = 2 if self.target_mode == "sincos" else self.output_dim
         if self.predict_radius:
             out_dim += 1
