@@ -6,6 +6,7 @@
     python3 chip_smoke.py --converge  # phase 1, then the speech and RIR stages to a known loss, FP32 and bf16
     python3 chip_smoke.py --bf16      # phases 1, 2, 3, 8 and 13 only
     python3 chip_smoke.py --otf       # phases 1 and 12 only (--full-bank: run K's whole 1024-angle bank)
+    python3 chip_smoke.py --deploy    # phases 1 and 14 only
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -120,6 +121,25 @@ nothing of JAX. Phases, one line each (more for detail):
    beside FP32 serving (latency, largest |delta theta|); (d) phase 10's
    pipeline with --compute-dtype bfloat16, preempted and resumed bitwise.
 
+14. the deploy surface (``deploy_phase``) at full width, on a store of seeded
+   weights written as the pipeline writes one (phase 10 deletes its own): (a)
+   the export CLI writes the joint (symbolic batch), the frozen (the 843 MB
+   fc_1) and the joint --from-audio artifacts, each verified against the live
+   model, with its bytes and export seconds; (b) a fresh process that imports
+   torch and ops.vq alone (the VQ operator's registration) loads each cold and
+   runs B = 1, 8 and 64: within ATOL of the live closure, the operator once in
+   each graph and no argmin, one vq_nearest launch per call; (c) the card's
+   artifact against the CPU port at B = 8 under the tie rule; (d) a control run
+   under cuDNN's default TF32 (not gated); (e) the --from-audio artifact on
+   80,000-sample waveforms; (f) a bf16 joint artifact against its live
+   closure; (g) serve latency of artifact and live closure in turns at B = 8
+   and 64; (h) locate, track, eval_t60_sweep, compare_location_models and
+   resynthesize on the card: exit 0, the JAX scripts' JSON keys.
+
+Phase 2 also holds the registered operator (``torch.ops.acoustic_locating_vq_vae_torch.vq_nearest``,
+through which the main path reaches the kernel) equal to the wrapper, and
+phase 4 reads its dispatch cost beside the B = 8 serve latency.
+
 ``--converge`` trains the speech and RIR VQ-VAEs at full width for 1,500
 updates each on 256 + 64 synthesized rows, in FP32 and in bf16 from the same
 seed, and prints the recon of the first and last 100 updates, the perplexity
@@ -133,8 +153,8 @@ launches) and as the enqueue time (two events around back-to-back Python
 calls, which for a call of tens of microseconds is the host's launch rate).
 The ``kernels`` line carries the card's time, one entry for each kernel and
 shape that was both timed and run by the main path's checked and timed runs
-(phases 3 and 6 to 10), with the launches counted at that shape
-(``count_by_shape``).
+(phases 3, 6 to 10, 12, 13 and 14's served artifacts), with the launches
+counted at that shape (``count_by_shape``).
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -237,6 +257,23 @@ BF16_ONLY = "--bf16"
 # the kernels against their plain versions (phases 2 and 5) and their timings
 # (of phases 4 and 7); a short run for working on a kernel
 KERNELS_ONLY = "--kernels"
+# `python3 chip_smoke.py --deploy`: phases 1 and 14 only
+DEPLOY = "--deploy"
+DEPLOY_ROOT = PIPE_ROOT / "deploy"
+DEPLOY_WIDTH = 1.0  # width_scale of phase 14's models and CLI runs: full width
+DEPLOY_SEED = 140
+DEPLOY_BATCHES = (1, 8, SERVE_B)
+PKG = "acoustic_locating_vq_vae_torch"
+OP_TARGET = f"{PKG}.vq_nearest.default"  # the registered VQ operator as an exported graph names it
+# the JSON keys each deploy CLI prints, the JAX package's scripts' own (tests/test_torch_deploy_cli.py checks
+# them against those scripts); the port's latency bench adds the device's name
+DEPLOY_CLI_KEYS = {
+    "locate": {"model", "samples", "rmse_radians", "rmse_radius_m", "latency"},
+    "track": {"model", "trajectory", "windows", "window_seconds", "rmse_radians", "median_abs_radians",
+              "max_abs_radians", "rmse_smoothed_radians", "rmse_radius_m", "track", "saved"},
+    "eval_t60_sweep": {"model", "t60_grid", "radius_grid", "snr_grid_db", "rmse_radians_min", "rmse_radians_max"},
+    "compare_location_models": {"finetune", "location_joint"},
+}
 
 
 def phase(n: int, msg: str) -> None:
@@ -555,6 +592,28 @@ def time_serving_kernels(dev, card: str) -> None:
     time_nearest(4, N_SERVE, 64, 1024, gen, card)
 
 
+def op_dispatch(dev, card: str, serve_ms: float) -> None:
+    """Phase 4: what the registered operator adds to vq_nearest at the B = 8 serving shape: the enqueue time
+    of ``vq.vq_nearest`` (the operator, which computes the row norms and calls the wrapper) against the
+    wrapper called with the same row-norm sum, in turns (wrapper, operator, operator, wrapper), and the
+    difference as a share of the joint localizer's B = 8 serve latency."""
+    import torch
+    from acoustic_locating_vq_vae_torch.ops import vq
+    from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn(8 * 201, 64, generator=gen, device=dev)
+    cb = torch.randn(1024, 64, generator=gen, device=dev)
+    wrapper = lambda: nearest_indices_cuda(x, cb, torch.sum(cb * cb, dim=1))
+    op = lambda: vq.vq_nearest(x, cb)
+    w1, o1, o2, w2 = (event_ms(f) for f in (wrapper, op, op, wrapper))
+    cost = (o1 + o2 - w1 - w2) / 2
+    phase(4, f"the registered operator at N=1,608: enqueue {o1:.5f} / {o2:.5f} ms, the wrapper {w1:.5f} / "
+             f"{w2:.5f} ms with the same row-norm sum; dispatch cost {cost * 1e3:.2f} us, "
+             f"{cost / serve_ms:.2%} of the joint B=8 serve latency {serve_ms:.4f} ms"
+             + (" (above 5 %)" if cost > 0.05 * serve_ms else "") + f" ({card})")
+
+
 def time_stage_kernels(dev, card: str) -> None:
     """Phase 9's kernel timings: vq_nearest at the shapes the composite and
     location stages add."""
@@ -602,6 +661,8 @@ def check_nearest(vq, nearest_cuda, dev) -> float:
             first = nearest_cuda(x, cb, e2)
             if not torch.equal(first, nearest_cuda(x, cb, e2)):
                 raise AssertionError(f"kernel ({n}, {d}, {k}): two launches differ")
+            if not torch.equal(vq.vq_nearest(x, cb), first):
+                raise AssertionError(f"({n}, {d}, {k}): the registered operator differs from the kernel's wrapper")
             want = vq.nearest_indices(x, cb, e2)
             torch.cuda.synchronize()
             mism, gap = check_codes(x, cb, first.long(), want, f"kernel ({n}, {d}, {k})")
@@ -646,7 +707,8 @@ def check_nearest(vq, nearest_cuda, dev) -> float:
         exact("all ties", torch.ones(8, 4, device=dev), torch.ones(6, 4, device=dev), torch.zeros(8))
         exact("all ties across slices", torch.ones(1608, 64, device=dev), torch.ones(1024, 64, device=dev),
               torch.zeros(1608))
-    phase(2, f"kernel == plain, two launches equal, at {'; '.join(report)}; duplicated codebook rows, +-0.0 scores "
+    phase(2, f"kernel == plain, two launches equal, the registered operator torch.ops.{vq.VQ_NEAREST_OP.replace('::', '.')} "
+             f"== the wrapper, at {'; '.join(report)}; duplicated codebook rows, +-0.0 scores "
              f"and all ties -> the lower index; a NaN row -> code 0; max float64 score gap on differing rows {max_err}")
     return max_err
 
@@ -2496,6 +2558,341 @@ def bf16_phase(dev, counters, card: str, composite, paths, cfg, specs) -> None:
     phase(13, f"phase 13 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+def flat_latent(rir, spec):
+    """The pre-VQ latent rows the quantizer of ``rir`` sees for echoed spectrograms ``spec``."""
+    from acoustic_locating_vq_vae_torch.dsp import znorm
+
+    z = rir.pre_vq_latent(znorm(spec, dim=1).transpose(1, 2))
+    return (z if rir.compat_vq_flatten else z.transpose(1, 2)).reshape(-1, rir.embedding_dim)
+
+
+def wrapped_max(got, want) -> float:
+    """Largest |got - want| over (theta, radius, coords), theta on the circle."""
+    import torch
+
+    dth = torch.remainder(got[0].float() - want[0].float() + math.pi, 2 * math.pi) - math.pi
+    return max(float(dth.abs().max()), *(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], want[1:])))
+
+
+def deploy_store(root: Path, cfg, g) -> dict:
+    """Phase 14's stage store at DEPLOY_WIDTH, written as the pipeline writes one (``StageStore.save_stage``
+    with the metadata ``Trainer`` writes): seeded weights, each codebook made of pre-VQ latent rows of a
+    separate seeded batch: location_joint (sincos + radius, vectors flatten: the run K artifact's model),
+    location (one-hot encodings, theta/pi: the 843 MB fc_1 at full width) over finetune (the composite,
+    memory-order flatten) and speech (for resynthesize). Phase 10 deletes its store, so this phase writes its
+    own. Returns ``{"joint" | "frozen": (task, params, RIR-branch params or None, RIR branch module)}``."""
+    import torch
+    from acoustic_locating_vq_vae_torch.cli.common import rir_branch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.train import (
+        EchoedSpeechTask, JointLocationTask, LocationTask, SpeechVQVAETask, checkpoint_metadata,
+    )
+    from acoustic_locating_vq_vae_torch.utils import StageStore
+
+    kw = dict(config=cfg, width_scale=DEPLOY_WIDTH)
+    joint_task, location_task, echoed_task, speech_task = (
+        JointLocationTask(**kw, predict_radius=True), LocationTask(**kw), EchoedSpeechTask(**kw), SpeechVQVAETask(**kw))
+    joint = joint_task.build_model(g)
+    with full_fp32():
+        spec = torch.empty(8, cfg.num_freq, cfg.num_frames).exponential_(generator=g)
+        latent_codebook_(joint.rir_model, joint_task.model_inputs(spec)[0], g)
+    composite = composite_weights(echoed_task, g)
+    branch = rir_branch(composite)
+    rir = location_task.build_rir_model()
+    rir.load_state_dict(branch)
+    head = location_task.build_model(g).state_dict()
+    store = StageStore(str(root))
+    for tag, task, weights in (("speech", speech_task, speech_task.build_model(g).state_dict()),
+                               ("finetune", echoed_task, composite), ("location", location_task, head),
+                               ("location_joint", joint_task, joint.state_dict())):
+        store.save_stage(tag, {"model": weights}, step=0, metadata=dict(checkpoint_metadata(task, True), task=tag))
+    return {"joint": (joint_task, joint.state_dict(), None, joint.rir_model),
+            "frozen": (location_task, head, branch, rir)}
+
+
+def run_deploy_clis(jobs: dict, root: Path) -> dict:
+    """Start every ``name: (cli module, argv)`` of ``jobs`` at once as ``python -m
+    acoustic_locating_vq_vae_torch.cli.<module> argv --device DEVICE --width-scale DEPLOY_WIDTH``, wait for
+    all, and stop any still running; returns ``{name: (exit code, stdout, stderr)}``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
+    procs = {}
+    try:
+        for name, (module, argv) in jobs.items():
+            cmd = [sys.executable, "-u", "-m", f"{PKG}.cli.{module}", *argv, "--device", DEVICE,
+                   "--width-scale", str(DEPLOY_WIDTH)]
+            out, err = open(root / f"{name}.out", "w"), open(root / f"{name}.err", "w")
+            procs[name] = (subprocess.Popen(cmd, stdout=out, stderr=err, env=env, cwd=REPO), out, err)
+        results = {}
+        for name, (proc, out, err) in procs.items():
+            rc = proc.wait(timeout=900)
+            out.close()
+            err.close()
+            results[name] = (rc, (root / f"{name}.out").read_text(encoding="utf-8"),
+                             (root / f"{name}.err").read_text(encoding="utf-8"))
+        return results
+    finally:
+        for proc, out, err in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+
+
+def last_json(text: str):
+    """The JSON object a CLI printed last (one line, or indented over several)."""
+    lines = text.splitlines()
+    start = max(i for i, line in enumerate(lines) if line.startswith("{"))
+    return json.loads("\n".join(lines[start:]))
+
+
+# Phase 14 (b): a fresh process that loads artifacts cold. It imports torch and the one module of the port an
+# artifact needs, ops.vq (it registers the VQ operator the graph calls), and nothing else of the port; it sets
+# TF32 off as load_localizer's call does (full_fp32), and for the control leaves cuDNN's TF32 at PyTorch's
+# default, on. argv: the port's source root, the jobs file, the device.
+COLD_LOAD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import acoustic_locating_vq_vae_torch.ops.vq
+from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
+
+device = torch.device(sys.argv[3])
+cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+
+
+def run(module, x, tf32):
+    cudnn.allow_tf32, matmul.allow_tf32 = tf32, False
+    before = nearest_indices_cuda.launches
+    with torch.inference_mode():
+        out = module(x.to(device))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return [t.cpu() for t in out], nearest_indices_cuda.launches - before
+
+
+report = {}
+for job in json.load(open(sys.argv[2])):
+    module = torch.export.load(job["artifact"]).module()
+    targets = [str(n.target) for n in module.graph.nodes if n.op == "call_function"]
+    outs, launches = [], []
+    for x in torch.load(job["inputs"]):
+        out, n = run(module, x, False)
+        outs.append(out)
+        launches.append(n)
+    control = run(module, x, True)[0] if job["control"] else None
+    torch.save({"outs": outs, "control": control}, job["out"])
+    report[job["name"]] = {"op": targets.count(job["op"]), "argmin": sum("argmin" in t for t in targets),
+                           "launches": launches}
+report["modules"] = sorted(m for m in sys.modules if m.startswith("acoustic_locating_vq_vae_torch"))
+print(json.dumps(report))
+"""
+
+
+def deploy_phase(dev, counters, card: str) -> None:
+    """Phase 14, the deploy surface at full width: (a) the export CLI writes the joint (symbolic batch, with
+    its --latency bench), the frozen and the joint --from-audio artifacts, three processes at once; (b) a fresh
+    process loads each cold with torch and ops.vq alone and runs B = 1, 8, 64 (waveforms: 1, 8): each equals
+    the live closure within ATOL, each graph holds the operator once and no argmin, each call launches
+    vq_nearest once; (c) at B = 8 the card's artifact against the CPU port on the same weights, codes under
+    the tie rule; (d) a control run of each loaded program under cuDNN's default TF32, its largest |dtheta|
+    (not gated); (e) the --from-audio artifact on 80,000-sample waveforms; (f) a bf16 joint artifact against
+    its live closure; (g) serve latency, median of 20, artifact and live closure in turns (live, artifact,
+    artifact, live) at B = 8 and 64; (h) locate, track (arc, 24 windows), eval_t60_sweep (two T60s, n = 8),
+    compare_location_models and resynthesize with --device, five processes at once: exit 0, JAX's JSON keys
+    (resynthesize prints lines and no JSON, as JAX's script does: its two wav files are checked)."""
+    import dataclasses
+
+    import torch
+    from acoustic_locating_vq_vae_torch.data import DatasetConfig
+    from acoustic_locating_vq_vae_torch.dsp import znorm
+    from acoustic_locating_vq_vae_torch.eval import export_localizer, full_fp32, load_localizer, make_serving_fn
+
+    t_phase = time.perf_counter()
+    root = DEPLOY_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = DatasetConfig()
+    g = torch.Generator().manual_seed(DEPLOY_SEED)
+    t0 = time.perf_counter()
+    paths = deploy_store(root / "store", cfg, g)
+    store = str(root / "store")
+    phase(14, f"store of seeded weights at width {DEPLOY_WIDTH} written in {time.perf_counter() - t0:.2f} s "
+              f"({sum(f.stat().st_size for f in (root / 'store').rglob('*.pt'))} bytes): speech, finetune, "
+              "location (one-hot encodings), location_joint (sincos + radius)")
+
+    # ---- (a) the export CLI, three artifacts at once
+    arts = {"joint": root / "joint", "frozen": root / "frozen", "audio": root / "joint_audio"}
+    export = lambda name, *extra: ("export_localizer", ["--store-dir", store, "--out-dir", str(arts[name]),
+                                                        "--verify-n", "8", *extra])
+    runs = run_deploy_clis({"joint": export("joint", "--model", "joint", "--latency", "10"),
+                            "frozen": export("frozen", "--model", "frozen"),
+                            "audio": export("audio", "--model", "joint", "--from-audio")}, root)
+    exported = {}
+    for name, (rc, out, err) in runs.items():
+        if rc != 0:
+            raise AssertionError(f"(a) export_localizer {name} exited {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        m = re.search(r"\((\d+) bytes, platforms \['(\w+)'\]\) in ([0-9.]+) s", out)
+        summary = last_json(out)
+        keys = {"verified", "max_abs_diff", "theta_pred_rad"} | ({"artifact_latency"} if name == "joint" else set())
+        if m is None or m.group(2) != dev.type or not summary["verified"] or set(summary) != keys:
+            raise AssertionError(f"(a) export_localizer {name}: {out[-2000:]}")
+        exported[name] = (int(m.group(1)), float(m.group(3)), summary)
+    lat = exported["joint"][2]["artifact_latency"]
+    phase(14, "(a) export_localizer CLI, verified against the live model on the card (max |diff| < "
+              f"{ATOL}): " + "; ".join(f"{n} {b} bytes, exported in {t:.3f} s, max |diff| {max(s['max_abs_diff'].values()):.3g}"
+                                        for n, (b, t, s) in exported.items())
+              + f"; the CLI's --latency on the joint artifact, B=8: p50 {lat['p50_ms']} ms, mean {lat['mean_ms']} ms "
+              f"({lat['device']}; {card})")
+
+    # ---- (b) to (e): cold loads in a fresh process, against the live closures
+    specs = {b: torch.empty(b, cfg.num_freq, cfg.num_frames).exponential_(generator=g) for b in DEPLOY_BATCHES}
+    waves = {b: torch.randn(b, cfg.audio_samples, generator=g) for b in (1, 8)}
+    torch.save([specs[b] for b in DEPLOY_BATCHES], root / "specs.pt")
+    torch.save(list(waves.values()), root / "waves.pt")
+    jobs = [{"name": n, "artifact": str(arts[n] / "localizer.pt2"), "op": OP_TARGET, "control": n != "audio",
+             "inputs": str(root / ("waves.pt" if n == "audio" else "specs.pt")), "out": str(root / f"{n}_out.pt")}
+            for n in arts]
+    (root / "jobs.json").write_text(json.dumps(jobs))
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", COLD_LOAD, str(REPO / "src"), str(root / "jobs.json"), DEVICE],
+                           capture_output=True, text=True, timeout=900, cwd=root)
+    cold_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"(b) the cold-load process exited {child.returncode}:\n{child.stderr[-3000:]}")
+    report = last_json(child.stdout)
+    extra = [m for m in report["modules"] if m not in (PKG, f"{PKG}.ops") and not m.startswith(f"{PKG}.ops.")]
+    if extra:
+        raise AssertionError(f"(b) loading the artifacts imported more of the port than the operator: {extra}")
+    loaded = {n: torch.load(root / f"{n}_out.pt") for n in arts}
+    for name, r in report.items():
+        if name != "modules" and (r["op"] != 1 or r["argmin"] or any(n != 1 for n in r["launches"])):
+            raise AssertionError(f"(b) {name}: graph holds the operator {r['op']} times, argmin {r['argmin']} "
+                                 f"times; vq_nearest launches per call {r['launches']}")
+    for name in ("joint", "frozen"):
+        task, params, branch, rir = paths[name]
+        serve = make_serving_fn(task, params, cfg, branch, device=dev)
+        errs = [wrapped_max(out, [t.cpu() for t in serve(specs[b].to(dev))])
+                for b, out in zip(DEPLOY_BATCHES, loaded[name]["outs"])]
+        if max(errs) > ATOL:
+            raise AssertionError(f"(b) {name}: artifact against the live closure {errs} at B={DEPLOY_BATCHES}")
+        # (c) the card's artifact against the CPU port at B = 8, codes under the tie rule
+        art8 = loaded[name]["outs"][DEPLOY_BATCHES.index(8)]
+        cpu = make_serving_fn(task, params, cfg, branch, device="cpu")(specs[8])
+        with torch.inference_mode(), full_fp32():
+            x = znorm(specs[8], dim=1).transpose(1, 2)
+            codes_cpu = rir.get_latent_codes(x)
+            rir_card = copy.deepcopy(rir).to(dev)
+            codes_card = rir_card.get_latent_codes(x.to(dev)).cpu()
+            mism, gap = check_codes(flat_latent(rir, specs[8]), rir._vq._embedding.weight, codes_card.flatten(),
+                                    codes_cpu.flatten(), f"(c) {name} codes card vs CPU")
+            del rir_card
+        same = (codes_cpu == codes_card).all(1)
+        c_err = wrapped_max([t[same] for t in art8], [t[same] for t in cpu]) if bool(same.any()) else float("nan")
+        if int(same.sum()) < 1 or c_err > ATOL:
+            raise AssertionError(f"(c) {name}: artifact on the card vs the CPU port {c_err} over {int(same.sum())} samples")
+        # (d) the same program under cuDNN's default TF32, not gated
+        ctrl = wrapped_max(loaded[name]["control"], loaded[name]["outs"][-1])
+        phase(14, f"(b) {name} artifact loaded cold (torch and {PKG}.ops alone; load and runs {cold_s:.2f} s for all "
+                  f"three): operator once, no argmin, vq_nearest once per call, max |artifact - live| {max(errs):.3g} "
+                  f"at B={DEPLOY_BATCHES}; (c) card vs CPU port at B=8: codes differ on {mism} tie rows (gap {gap}), "
+                  f"{int(same.sum())}/8 samples with equal codes, max |diff| {c_err:.3g}; (d) TF32 control at "
+                  f"B={SERVE_B}: max |diff| (theta on the circle) {ctrl:.4g} against the FP32 artifact (not gated)")
+
+    task, params, _, _ = paths["joint"]
+    serve_audio = make_serving_fn(task, params, cfg, device=dev, from_audio=True)
+    a_errs = [wrapped_max(out, [t.cpu() for t in serve_audio(waves[b].to(dev))])
+              for b, out in zip(waves, loaded["audio"]["outs"])]
+    if max(a_errs) > ATOL:
+        raise AssertionError(f"(e) from_audio artifact against the live closure: {a_errs}")
+    phase(14, f"(e) the --from-audio joint artifact on {cfg.audio_samples}-sample waveforms at B={tuple(waves)}: "
+              f"max |artifact - live| {max(a_errs):.3g}, vq_nearest once per call")
+
+    # ---- (f) a bf16 joint artifact against its live closure
+    bf_task = dataclasses.replace(task, compute_dtype="bfloat16")
+    serve_bf = make_serving_fn(bf_task, params, cfg, device=dev)
+    t0 = time.perf_counter()
+    meta_bf = export_localizer(bf_task, params, cfg, str(root / "joint_bf16"), serve_fn=serve_bf)
+    bf_s = time.perf_counter() - t0
+    call_bf, _ = load_localizer(str(root / "joint_bf16"))
+    bf_errs = []
+    for b in (8, SERVE_B):
+        x = specs[b].to(dev)
+        before = counters[0].launches
+        got = call_bf(x)
+        if counters[0].launches != before + 1:
+            raise AssertionError("(f) the bf16 artifact's call did not launch vq_nearest once")
+        bf_errs.append(wrapped_max(got, serve_bf(x)))
+    targets = [str(n.target) for n in call_bf.module.graph.nodes if n.op == "call_function"]
+    if max(bf_errs) > ATOL or targets.count(OP_TARGET) != 1:
+        raise AssertionError(f"(f) bf16 artifact against its live closure {bf_errs}, operator {targets.count(OP_TARGET)} times")
+    phase(14, f"(f) bf16 joint artifact ({meta_bf['bytes']} bytes, exported in {bf_s:.3f} s in process): max "
+              f"|artifact - live| {max(bf_errs):.3g} at B=8, {SERVE_B}")
+    del call_bf, serve_bf
+
+    # ---- (g) serve latency, artifact and live closure in turns
+    lines = []
+    for c in counters:
+        c.launches = 0
+    calls = 0
+    with count_by_shape():
+        for name in ("joint", "frozen"):
+            t_, p_, branch, _ = paths[name]
+            live = make_serving_fn(t_, p_, cfg, branch, device=dev)
+            art, _ = load_localizer(str(arts[name]))
+            parts = []
+            for b in (8, SERVE_B):
+                inputs = [torch.empty(b, cfg.num_freq, cfg.num_frames).exponential_(generator=g).to(dev)
+                          for _ in range(20)]
+                l1, a1, a2, l2 = (serve_latency_ms(f, inputs) for f in (live, art, art, live))
+                calls += 4 * (len(inputs) + 3)  # serve_latency_ms warms up on three of them
+                parts.append(f"B={b} artifact {a1:.4f} / {a2:.4f} ms, live {l1:.4f} / {l2:.4f} ms")
+            lines.append(f"{name}: " + "; ".join(parts))
+            del live, art
+    torch.cuda.synchronize()
+    if counters[0].launches != calls:
+        raise AssertionError(f"(g) {calls} serve calls launched vq_nearest {counters[0].launches} times")
+    phase(14, "(g) serve latency, median of 20 distinct inputs after 3 warm-ups, in turns: " + " | ".join(lines)
+              + f"; vq_nearest launches {counters[0].launches} for {calls} calls ({card})")
+
+    # ---- (h) the deploy and evaluation CLIs, five processes at once
+    data = ["--dataset-size", "8", "--val-size", "8"]
+    runs = run_deploy_clis({
+        "locate": ("locate", ["--store-dir", store, "--n", "8", "--latency", "5", *data]),
+        "track": ("track", ["--store-dir", store, "--windows", "24", "--out", str(root / "track.npz")]),
+        "eval_t60_sweep": ("eval_t60_sweep", ["--store-dir", store, "--t60-grid", "0.3", "0.6", "--n", "8"]),
+        "compare_location_models": ("compare_location_models", ["--store-dir", store, *data]),
+        "resynthesize": ("resynthesize", ["--store-dir", store, "--dataset-size", "2", "--val-size", "0",
+                                          "--gl-iters", "8", "--out-prefix", str(root / "resynth")]),
+    }, root)
+    lines = []
+    for name, (rc, out, err) in runs.items():
+        if rc != 0:
+            raise AssertionError(f"(h) {name} exited {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        if name == "resynthesize":
+            wavs = [root / f"resynth_{k}.wav" for k in ("original", "recon")]
+            if not all(w.exists() and w.stat().st_size > 44 for w in wavs) or "spectral SNR" not in out:
+                raise AssertionError(f"(h) resynthesize wrote {[w.name for w in wavs if w.exists()]}:\n{out[-2000:]}")
+            lines.append(f"resynthesize: {out.strip().splitlines()[-1]}")
+            continue
+        got = last_json(out)
+        if set(got) != DEPLOY_CLI_KEYS[name]:
+            raise AssertionError(f"(h) {name} printed keys {sorted(got)}, want {sorted(DEPLOY_CLI_KEYS[name])}")
+        if name == "locate":
+            lines.append(f"locate: rmse {got['rmse_radians']} rad, latency p50 {got['latency']['p50_ms']} ms at B=8 "
+                          f"({got['latency']['device']})")
+        elif name == "track":
+            lines.append(f"track: rmse {got['rmse_radians']}, smoothed {got['rmse_smoothed_radians']} rad")
+        elif name == "eval_t60_sweep":
+            lines.append(f"eval_t60_sweep: rmse {got['rmse_radians_min']:.4f}-{got['rmse_radians_max']:.4f} rad")
+        else:
+            rmse = ", ".join(f"{k} {v['rmse_radians']:.4f}" for k, v in got.items())
+            lines.append(f"compare_location_models: rmse {rmse} rad")
+    phase(14, "(h) the CLIs on the card with random weights, exit 0, JAX's keys: " + "; ".join(lines))
+    shutil.rmtree(root)
+    phase(14, f"phase 14 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def manifest_task(stage: str, cfg, compute_dtype: str = "float32"):
     """The task of ``stage`` as phase 10's pipeline builds it (preset fixed, the joint stage with the range
     output and a tail term, a checkpoint every PIPE_CKPT_EVERY)."""
@@ -2556,6 +2953,11 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
+    if DEPLOY in sys.argv[1:]:
+        deploy_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
     if KERNELS_ONLY in sys.argv[1:]:
         check_nearest(vq, nearest_indices_cuda, dev)
         check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
@@ -2574,11 +2976,6 @@ def main() -> int:
     def specs(b, n=1):
         """Seeded echoed power spectrograms (non-negative, heavy-tailed)."""
         return [torch.empty(b, cfg.num_freq, cfg.num_frames).exponential_(generator=g) for _ in range(n)]
-
-    def flat_latent(rir, spec):
-        x = znorm(spec, dim=1).transpose(1, 2)
-        z = rir.pre_vq_latent(x)
-        return (z if rir.compat_vq_flatten else z.transpose(1, 2)).reshape(-1, rir.embedding_dim)
 
     joint_task = JointLocationTask(predict_radius=True)
     frozen_task = LocationTask()
@@ -2651,8 +3048,9 @@ def main() -> int:
         return 0
 
     # ---- phase 4: timings on the card
+    serve_lat = {}
     for name, (serve_gpu, _) in outs.items():
-        lat = {}
+        lat = serve_lat[name] = {}
         for b in (8, SERVE_B):
             inputs = [s.to(dev) for s in specs(b, 20)]
             lat[b] = serve_latency_ms(serve_gpu, inputs)
@@ -2672,6 +3070,7 @@ def main() -> int:
                      f"kernels by device time: {tops}")
 
     time_serving_kernels(dev, card)
+    op_dispatch(dev, card, serve_lat["joint"][8])
     del outs
     if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
         torch._C._cuda_clearCublasWorkspaces()  # the capture stream's, or it counts in phase 7's peak memory
@@ -2773,6 +3172,9 @@ def main() -> int:
 
     # ---- phase 13: bf16 compute_dtype: every stage card vs CPU, step times, serving, the pipeline resumed
     bf16_phase(dev, counters, card, composite, paths, cfg, specs)
+
+    # ---- phase 14: the deploy surface: exported artifacts loaded cold, the deploy and evaluation CLIs
+    deploy_phase(dev, counters, card)
 
     # one entry for each kernel and shape that was timed and that the main path ran, with the launches it
     # made at that shape; every kernel of the path has an entry

@@ -27,12 +27,25 @@ train   Task and the six stage tasks (SpeechVQVAETask, RirVQVAETask,
         EchoedSpeechTask, EncoderFinetuneTask, LocationTask,
         JointLocationTask), make_task, graft_pretrained,
         check_flatten_handoff, Trainer, TrainHistory
-eval    weights from the JAX package's parameter trees, the serving closure
-utils   device rules (full_fp32, resolve_device)
+eval    weights from the JAX package's parameter trees, the serving closure,
+        the exported localizer artifact (export_localizer, load_localizer),
+        tracking and resynthesis helpers, the location evaluation
+cli     the command-line entry points (pipeline, dataset, export, locate,
+        track, evaluation sweeps, resynthesis)
+utils   device rules (full_fp32, resolve_device), the stage store
 """
 
 __version__ = "0.1.0"
 
-from . import data, dsp, eval, models, ops, train, utils
+import importlib
 
-__all__ = ["data", "dsp", "eval", "models", "ops", "train", "utils", "__version__"]
+__all__ = ["cli", "data", "dsp", "eval", "models", "ops", "train", "utils", "__version__"]
+
+
+def __getattr__(name: str):
+    """Subpackages load on first use, so that importing one module (a
+    loaded localizer needs only ``ops.vq``, which registers the assignment's
+    operator) does not import the models, the trainer or the data pipeline."""
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

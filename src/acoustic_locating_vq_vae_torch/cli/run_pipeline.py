@@ -48,7 +48,7 @@ import sys
 import numpy as np
 
 __all__ = [
-    "add_synthesis_args", "build_parser", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
+    "add_data_args", "add_model_args", "add_synthesis_args", "build_parser", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
     "recipe_kwargs", "smoke_config", "synthesis_kwargs",
 ]
 
@@ -72,15 +72,9 @@ def exit_on_preemption():
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--data-dir", default=None, help="SpecsDataset dir (.pt/.npz); default: synthesize on device")
-    p.add_argument("--val-dir", default=None, help="validation SpecsDataset dir")
-    p.add_argument("--dataset-size", type=int, default=1000, help="synthetic dataset size (genereate_dataset.py:62)")
-    p.add_argument("--val-size", type=int, default=200)
-    p.add_argument("--smoke", action="store_true", help="tiny config for a fast end-to-end check")
-    p.add_argument("--store-dir", default="checkpoints", help="stage store / checkpoint root")
+    add_data_args(p)
+    add_model_args(p)
     p.add_argument("--updates", type=int, default=None, help="override every stage's number of updates")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--width-scale", type=float, default=1.0)
     p.add_argument(
         "--preset", choices=["compat", "fixed"], default="fixed",
         help="fixed (default) = the JAX package's best validated configuration (anchored "
@@ -92,17 +86,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="EMA codebook learning for the VQ stages (default: gradient codebook)")
     p.add_argument("--commitment-weight", type=float, default=None,
                    help="override the preset's fine-tune VQ anchor weight")
-    p.add_argument("--location-input-mode", choices=["encodings", "quantized"], default=None,
-                   help="location MLP input: one-hot encodings (reference) or dense quantized latents")
-    p.add_argument("--location-target-mode", choices=["normalized_angle", "sincos"], default=None,
-                   help="location target: theta/pi MSE (reference) or circular (sin, cos); default "
-                   "normalized_angle for the frozen location stage, sincos for the joint stage")
-    p.add_argument("--vq-flatten", choices=["compat", "vectors"], default=None,
-                   help="compat = the reference's memory-order view(-1, D) VQ flatten; vectors = "
-                   "channels-last D-vectors (default: the preset's)")
-    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="conv-stack compute dtype of every stage and of the evaluations (parameters, losses, the "
-                   "VQ assignment and the location head stay float32)")
     p.add_argument("--joint-location", action="store_true",
                    help="append the joint stage: the RIR encoder fine-tuned jointly with a fresh "
                    "location head on the angle loss, seeded from the fine-tuned composite")
@@ -127,7 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of a few steady-state steps of each stage here")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument(
         "--on-the-fly", action="store_true",
         help="synthesize a fresh training batch inside every step (infinite data; no training dataset needed)",
@@ -168,6 +150,38 @@ def build_parser() -> argparse.ArgumentParser:
         "batch) — for 20k-scale sets",
     )
     return p
+
+
+def add_data_args(p: argparse.ArgumentParser) -> None:
+    """The data, store, seed and device flags every entry point that reads a
+    store shares with the pipeline (the JAX ``scripts/_common.py:base_parser``)."""
+    p.add_argument("--data-dir", default=None, help="SpecsDataset dir (.pt/.npz); default: synthesize on device")
+    p.add_argument("--val-dir", default=None, help="validation SpecsDataset dir")
+    p.add_argument("--dataset-size", type=int, default=1000, help="synthetic dataset size (genereate_dataset.py:62)")
+    p.add_argument("--val-size", type=int, default=200)
+    p.add_argument("--smoke", action="store_true", help="tiny config for a fast end-to-end check")
+    p.add_argument("--store-dir", default="checkpoints", help="stage store / checkpoint root")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """The model flags the pipeline shares with the entry points that read
+    its store: the width and the task modes (a checkpoint's metadata
+    overrides a mode it records, ``cli.common.apply_stage_eval_config``)."""
+    p.add_argument("--width-scale", type=float, default=1.0,
+                   help="conv and codebook widths relative to the published model (1.0)")
+    p.add_argument("--location-input-mode", choices=["encodings", "quantized"], default=None,
+                   help="location MLP input: one-hot encodings (reference) or dense quantized latents")
+    p.add_argument("--location-target-mode", choices=["normalized_angle", "sincos"], default=None,
+                   help="location target: theta/pi MSE (reference) or circular (sin, cos); default "
+                   "normalized_angle for the frozen location stage, sincos for the joint stage")
+    p.add_argument("--vq-flatten", choices=["compat", "vectors"], default=None,
+                   help="compat = the reference's memory-order view(-1, D) VQ flatten; vectors = "
+                   "channels-last D-vectors (default: the preset's)")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="conv-stack compute dtype of every stage and of the evaluations (parameters, losses, the "
+                   "VQ assignment and the location head stay float32)")
 
 
 def add_synthesis_args(p: argparse.ArgumentParser) -> None:

@@ -5,6 +5,7 @@ from .conv import Conv1d, ConvTranspose1d, Dense
 from .jitter import Jitter, jitter, jitter_decisions
 from .residual import Residual, ResidualStack
 from .vq import (
+    VQ_NEAREST_OP,
     VectorQuantizer,
     VQOutput,
     assign,
@@ -14,6 +15,7 @@ from .vq import (
     codebook_stats_plain,
     nearest_codebook,
     nearest_indices,
+    vq_nearest,
 )
 from .vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
 
@@ -28,6 +30,8 @@ __all__ = [
     "ResidualStack",
     "VectorQuantizer",
     "VQOutput",
+    "VQ_NEAREST_OP",
+    "vq_nearest",
     "assign",
     "codebook_grad",
     "codebook_grad_plain",

@@ -19,7 +19,10 @@ Where the work runs follows the tensor alone: a CUDA tensor goes to the
 hand-written kernels (``ops/vq_cuda.py``: ``csrc/vq_nearest.cu`` for the
 assignment, ``csrc/vq_codebook_accum.cu`` for the codebook gradient and the
 EMA statistics), a CPU tensor to the plain versions below. There is no
-fallback between them and no switch.
+fallback between them and no switch. The assignment is the registered
+operator :func:`vq_nearest` (``torch.ops.acoustic_locating_vq_vae_torch.
+vq_nearest``), so that training, the serving closure and an exported
+localizer all reach the kernel through one graph node.
 """
 
 from __future__ import annotations
@@ -33,8 +36,12 @@ from torch import nn
 from .initializers import uniform_
 from .vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
 
+# the assignment's operator, in the package's own namespace: an exported
+# localizer names it, and loading one needs only this module imported
+VQ_NEAREST_OP = "acoustic_locating_vq_vae_torch::vq_nearest"
+
 __all__ = [
-    "VectorQuantizer", "VQOutput", "nearest_indices", "nearest_codebook", "assign",
+    "VectorQuantizer", "VQOutput", "VQ_NEAREST_OP", "vq_nearest", "nearest_indices", "nearest_codebook", "assign",
     "codebook_grad", "codebook_stats", "codebook_grad_plain", "codebook_stats_plain",
     "perplexity_from_indices",
 ]
@@ -61,12 +68,34 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _assign_indices(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """int32 code ids, the kernel's own dtype, on either device."""
-    if _device_type(flat_x) == "cpu":
-        return nearest_codebook(flat_x, codebook)[0].to(torch.int32)
+@torch.library.custom_op(VQ_NEAREST_OP, mutates_args=(), device_types="cpu")
+def vq_nearest(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """The assignment as one registered operator: int32 code ids ``(N,)`` of
+    the nearest codebook rows. On the CPU the plain version; on the card
+    (below) the ``csrc/vq_nearest.cu`` kernel, with no fallback. Being an
+    operator and not a Python call, it is what ``torch.export`` records: an
+    exported localizer holds this node (never ``argmin``), and a loaded
+    artifact dispatches it to the kernel on the card."""
+    return nearest_codebook(flat_x, codebook)[0].to(torch.int32)
+
+
+@vq_nearest.register_kernel("cuda")
+def _vq_nearest_cuda(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     cb = codebook.contiguous()
+    # the module's name is read at each call, so a wrapper put in its place (a launch counter) is the one called
     return nearest_indices_cuda(flat_x.contiguous(), cb, torch.sum(cb * cb, dim=1))
+
+
+@vq_nearest.register_fake
+def _vq_nearest_fake(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    return flat_x.new_empty((flat_x.shape[0],), dtype=torch.int32)
+
+
+def _assign_indices(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """int32 code ids, the kernel's own dtype, on either device, through the
+    registered operator."""
+    _device_type(flat_x)
+    return vq_nearest(flat_x, codebook)
 
 
 def codebook_grad_plain(indices: torch.Tensor, g: torch.Tensor, num_embeddings: int) -> torch.Tensor:
@@ -130,7 +159,9 @@ def assign(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, 
 def perplexity_from_indices(indices: torch.Tensor, num_embeddings: int) -> torch.Tensor:
     """exp(entropy of code usage) over the given assignments
     (vector_quantizer.py:55-56)."""
-    flat = indices.reshape(-1)
+    # int64 in: bincount's count dtype is int64 on every device and in every torch version's fake
+    # kernel (some give int32 for int32 ids), so an exported graph's dtype checks hold when it runs
+    flat = indices.reshape(-1).long()
     counts = torch.bincount(flat, minlength=num_embeddings).to(torch.float32)
     avg_probs = counts / flat.shape[0]
     return torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))

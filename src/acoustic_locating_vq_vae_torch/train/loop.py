@@ -74,11 +74,26 @@ from .tasks import Task
 
 Cache = Dict[str, torch.Tensor]
 
-__all__ = ["Trainer", "TrainHistory", "Preempted"]
+__all__ = ["Trainer", "TrainHistory", "Preempted", "checkpoint_metadata"]
 
 # metadata attributes a checkpoint records where the task has them: the
 # evaluation-relevant configuration, which the VQ flatten is without a shape
 _META_ATTRS = ("compat_vq_flatten", "input_mode", "target_mode", "predict_radius")
+
+
+def checkpoint_metadata(task, final: bool) -> dict:
+    """The metadata a checkpoint of ``task`` records in the store's manifest:
+    the task's name, whether the checkpoint is the stage's final one, and
+    the evaluation-relevant modes the task has (``_META_ATTRS``), which the
+    deploy entry points read back (``cli.common.apply_stage_eval_config``)."""
+    meta: dict = {"task": task.name, "final": final, "has_rng": True}
+    for attr in _META_ATTRS:
+        if hasattr(task, attr):
+            v = getattr(task, attr)
+            if attr == "compat_vq_flatten":
+                v = True if v is None else bool(v)  # as the task's build_model resolves it
+            meta[attr] = v
+    return meta
 
 
 class Preempted(RuntimeError):
@@ -453,14 +468,7 @@ class Trainer:
         }
         if self.on_the_fly:
             tree["synth_generator"] = self.synth_generator.get_state()
-        meta: dict = {"task": self.task.name, "final": final, "has_rng": True}
-        for attr in _META_ATTRS:
-            if hasattr(self.task, attr):
-                v = getattr(self.task, attr)
-                if attr == "compat_vq_flatten":
-                    v = True if v is None else bool(v)  # as the task's build_model resolves it
-                meta[attr] = v
-        self.store.save_stage(tag, tree, step=self.step_count, metadata=meta)
+        self.store.save_stage(tag, tree, step=self.step_count, metadata=checkpoint_metadata(self.task, final))
         if not final and self.keep_checkpoints > 0:
             prefix = f"{self.task.name}_"
             periodic = sorted(

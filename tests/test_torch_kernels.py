@@ -162,6 +162,34 @@ def test_serving_on_card_matches_cpu(card, frozen):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_exported_artifact_on_card_calls_the_kernel(card, tmp_path):
+    """The joint localizer exported on the card at width 1/16: its graph
+    holds the registered operator and no argmin, each call of the loaded
+    artifact launches the kernel once, and it agrees with the live closure."""
+    from acoustic_locating_vq_vae_torch.eval import export_localizer, load_localizer
+
+    g = torch.Generator().manual_seed(1)
+    spec, other = torch.empty(2, 8, 201, 500).exponential_(generator=g)
+    task = JointLocationTask(width_scale=1 / 16, predict_radius=True)
+    model = task.build_model(g)
+    _latent_codebook_(model.rir_model, other, g)
+    params, cfg = model.state_dict(), DatasetConfig()
+    serve = make_serving_fn(task, params, cfg, device=card)
+    meta = export_localizer(task, params, cfg, str(tmp_path), serve_fn=serve)
+    assert meta["platforms"] == ["cuda"]
+    call, _ = load_localizer(str(tmp_path))
+    targets = [str(n.target) for n in call.module.graph.nodes if n.op == "call_function"]
+    assert targets.count("acoustic_locating_vq_vae_torch.vq_nearest.default") == 1
+    assert not [t for t in targets if "argmin" in t]
+    before = nearest_indices_cuda.launches
+    got = call(spec)
+    assert nearest_indices_cuda.launches == before + 1
+    for a, b in zip(got, serve(spec)):
+        assert a.is_cuda
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
 # the shapes of chip_smoke.py phase 5: speech, RIR, ragged, D not a multiple of 32
 ACCUM_SHAPES = [(16000, 128, 1024), (6432, 64, 1024), (100, 4, 16), (513, 129, 100)]
 
