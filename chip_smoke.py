@@ -7,6 +7,7 @@
     python3 chip_smoke.py --bf16      # phases 1, 2, 3, 8 and 13 only
     python3 chip_smoke.py --otf       # phases 1 and 12 only (--full-bank: run K's whole 1024-angle bank)
     python3 chip_smoke.py --deploy    # phases 1 and 14 only
+    python3 chip_smoke.py --data-parallel  # phases 1 and 15, then the kernels' checks and timings
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -136,6 +137,24 @@ nothing of JAX. Phases, one line each (more for detail):
    and 64; (h) locate, track, eval_t60_sweep, compare_location_models and
    resynthesize on the card: exit 0, the JAX scripts' JSON keys.
 
+15. data parallelism and the rest of eval/ (``data_parallel_phase``): (a)
+   NCCL at world size 1 (joined over a FileStore, no torchrun): the speech
+   stage (gradient and EMA codebook), the RIR stage and the uncached echoed
+   stage at full width and their own batch size, three steps on one seeded
+   batch through Trainer(data_parallel=...) bitwise equal to the plain trainer
+   (metrics, weights, codebook, EMA buffers, Adam), with the kernels' launches
+   counted and seen in a profile, the step time beside the plain trainer's and
+   the all-reduce's share of the card's time; (b) two ranks on the one card
+   (gloo over CUDA tensors, two processes of this script) training the speech
+   stage (gradient and EMA, a second EMA step with every code re-seeded) on 16
+   rows each of a B = 32 batch, against the single-process step on the same
+   rows (loss, gradients, weights, codes under the tie rule, EMA counts and
+   sums, perplexity; codebook and buffers bitwise equal on both ranks); (c)
+   the pipeline CLI under torchrun --nproc-per-node 1 --data-parallel (NCCL)
+   and without it at once, phase 10's configuration with two updates a stage,
+   every final bitwise equal; bench_gpu.py once; collect_encodings and the
+   linear probe on phase 14's composite.
+
 Phase 2 also holds the registered operator (``torch.ops.acoustic_locating_vq_vae_torch.vq_nearest``,
 through which the main path reaches the kernel) equal to the wrapper, and
 phase 4 reads its dispatch cost beside the B = 8 serve latency.
@@ -154,7 +173,7 @@ calls, which for a call of tens of microseconds is the host's launch rate).
 The ``kernels`` line carries the card's time, one entry for each kernel and
 shape that was both timed and run by the main path's checked and timed runs
 (phases 3, 6 to 10, 12, 13 and 14's served artifacts), with the launches
-counted at that shape (``count_by_shape``).
+counted at that shape (``count_by_shape``); phase 15's runs count too.
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -171,6 +190,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -264,6 +284,18 @@ DEPLOY_WIDTH = 1.0  # width_scale of phase 14's models and CLI runs: full width
 DEPLOY_SEED = 140
 DEPLOY_BATCHES = (1, 8, SERVE_B)
 PKG = "acoustic_locating_vq_vae_torch"
+# `python3 chip_smoke.py --data-parallel`: phases 1 and 15 only
+DP = "--data-parallel"
+DP_RANK = "--dp-rank"  # one rank of phase 15 (b), started by the phase itself
+DP_ROOT = PIPE_ROOT / "data_parallel"
+DP_SEED = 150
+DP_STEPS = 3  # phase 15 (a)'s steps on one batch, data-parallel and plain
+DP_B = 32  # phase 15 (b)'s global batch: 16 rows a rank
+DP_RESEED = 1e9  # an EMA reset threshold every code falls below: each code restarts from global row k mod N
+DP_SUMS_RTOL = 1e-5  # phase 15 (b)'s EMA sums and codebook, distance over their max
+ADAM_EPS = 1e-8  # torch.optim.Adam's eps, which the trainer keeps (optax.adam's)
+DP_CLI_UPDATES = 2  # phase 15 (c)'s updates a stage
+DP_LATENT_ROWS = 64
 OP_TARGET = f"{PKG}.vq_nearest.default"  # the registered VQ operator as an exported graph names it
 # the JSON keys each deploy CLI prints, the JAX package's scripts' own (tests/test_torch_deploy_cli.py checks
 # them against those scripts); the port's latency bench adds the device's name
@@ -2889,8 +2921,392 @@ def deploy_phase(dev, counters, card: str) -> None:
             rmse = ", ".join(f"{k} {v['rmse_radians']:.4f}" for k, v in got.items())
             lines.append(f"compare_location_models: rmse {rmse} rad")
     phase(14, "(h) the CLIs on the card with random weights, exit 0, JAX's keys: " + "; ".join(lines))
-    shutil.rmtree(root)
+    for entry in root.iterdir():  # the store stays for phase 15's latents; whoever runs last removes it
+        if entry.name != "store":
+            shutil.rmtree(entry) if entry.is_dir() else entry.unlink()
     phase(14, f"phase 14 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# ------------------------------------------------------------------ phase 15: data parallelism
+
+
+def nccl_share(step, batches) -> tuple:
+    """(card busy ms per step, the all-reduce kernels' ms per step, their launches, the VQ kernels' launches by
+    name) over profiled calls of ``step``: the profiler's device time by kernel (device_breakdown)."""
+    wall_us, busy_us, kernels = device_breakdown(step, batches, top=10_000)
+    n = len(batches)
+    coll = [(k, c, t) for k, c, t in kernels if "nccl" in k.lower() or "allreduce" in k.lower()]
+    vq = {name: sum(c for k, c, _ in kernels if name in k) for name in ("vq_nearest_kernel", "accum_kernel")}
+    return busy_us / n / 1e3, sum(t for _, _, t in coll) / n / 1e3, sum(c for _, c, _ in coll), vq
+
+
+def dp_world_one(dev, counters, card: str) -> None:
+    """Phase 15 (a): NCCL at world size 1, joined without torchrun over a FileStore: the speech stage
+    (gradient and EMA codebook), the RIR stage and the uncached echoed stage at full width and their own
+    batch size, DP_STEPS steps each on one seeded batch through Trainer(data_parallel=dp), bitwise equal to
+    the plain Trainer on the same batch (every metric, the weights, the codebook, the EMA buffers and Adam's
+    state); the kernels' launches; the step time, median of 10, beside the plain trainer's; the all-reduce's
+    share of the card's time in a profile."""
+    import torch
+    import torch.distributed as dist
+    from acoustic_locating_vq_vae_torch.parallel import init_data_parallel
+    from acoustic_locating_vq_vae_torch.train import RirVQVAETask, SpeechVQVAETask, Trainer
+
+    root = DP_ROOT / "world_one"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    dp = init_data_parallel(backend="nccl", device=dev, init_method=f"file://{root / 'store'}", rank=0,
+                            world_size=1)
+    g = torch.Generator().manual_seed(DP_SEED)
+    composite = composite_weights(make_stage_task("echoed"), g)
+    try:
+        for label, task in (("speech", SpeechVQVAETask()), ("speech EMA", SpeechVQVAETask(vq_ema=True)),
+                            ("rir", RirVQVAETask()), ("echoed", make_stage_task("echoed"))):
+            batch = stage_batch(task.batch_size, torch.Generator(device=dev).manual_seed(DP_SEED + 1), dev)
+            trainers = {}
+            for name, handle in (("plain", None), ("dp", dp)):
+                tr = Trainer(task, device=dev, seed=DP_SEED, verbose=False, data_parallel=handle)
+                if label == "echoed":
+                    tr.model.load_state_dict(composite)
+                trainers[name] = tr
+            got = {}
+            for name, tr in trainers.items():
+                for c in counters:
+                    c.launches = 0
+                with count_by_shape() if name == "dp" else contextlib.nullcontext():
+                    metrics = [tr.step(batch) for _ in range(DP_STEPS)]
+                torch.cuda.synchronize()
+                got[name] = (metrics, {c.__name__: c.launches for c in counters})
+            assert_bitwise(got["dp"][0], got["plain"][0], f"15 (a) {label} metrics")
+            assert_bitwise(trainers["dp"].model.state_dict(), trainers["plain"].model.state_dict(),
+                           f"15 (a) {label} weights")
+            assert_bitwise(trainers["dp"].optimizer.state_dict(), trainers["plain"].optimizer.state_dict(),
+                           f"15 (a) {label} adam")
+            launches = got["dp"][1]
+            want = {"nearest_indices_cuda": DP_STEPS * (2 if label == "echoed" else 1)}
+            want["codebook_stats_cuda" if task.name != "echoed" and task.vq_ema else "codebook_grad_cuda"] = (
+                0 if label == "echoed" else DP_STEPS)
+            if any(launches[k] != v for k, v in want.items()) or launches != got["plain"][1]:
+                raise AssertionError(f"15 (a) {label}: launches {launches}, plain {got['plain'][1]}, want {want}")
+            times = {name: step_times_ms(tr, batch, steps=10)[0] for name, tr in trainers.items()}
+            busy, coll_ms, coll_n, vq = nccl_share(lambda b: trainers["dp"].step(b), [batch] * 3)
+            # the profile shows the kernels ran (the wrappers' counts above are the exact gate; a profile may
+            # miss the launches of its first moments)
+            if vq["vq_nearest_kernel"] < 1 or (label != "echoed") != (vq["accum_kernel"] > 0):
+                raise AssertionError(f"15 (a) {label}: the profile holds {vq} VQ kernel launches")
+            phase(15, f"(a) {label}, B={task.batch_size}, NCCL at world size 1: {DP_STEPS} steps bitwise equal to "
+                      f"the plain trainer (metrics, weights, codebook{', EMA buffers' if 'EMA' in label else ''}, "
+                      f"Adam); launches {launches}; step median of 10: data-parallel {times['dp']:.4f} ms, plain "
+                      f"{times['plain']:.4f} ms ({times['dp'] / times['plain'] - 1:+.2%}); profiled: card busy "
+                      f"{busy:.4f} ms a step, all-reduce kernels {coll_n} launches, {coll_ms:.4f} ms a step "
+                      f"({coll_ms / busy:.2%}); VQ kernels in the profile {vq} ({card})")
+            del trainers
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+# Phase 15 (b): one rank of two on the one card, gloo over CUDA tensors. argv: rank, port, root.
+def dp_rank_main(argv) -> int:
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO / "src"))
+    from acoustic_locating_vq_vae_torch.data import SampleBatch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.ops import vq
+    from acoustic_locating_vq_vae_torch.parallel import init_data_parallel, shard_batch
+    from acoustic_locating_vq_vae_torch.train import SpeechVQVAETask, Trainer
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    dp = init_data_parallel(backend="gloo", device="cuda", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2, local_rank=0)
+    inputs = torch.load(root / "inputs.pt", weights_only=True)
+    batch = shard_batch(SampleBatch(**inputs["batch"]), dp).map(lambda a: a.to(dp.device))
+    out = {}
+    for label, ema in (("speech", False), ("speech EMA", True)):
+        tr = Trainer(SpeechVQVAETask(vq_ema=ema), seed=DP_SEED, verbose=False, data_parallel=dp)
+        tr.model.load_state_dict(inputs[label])
+        launches = vq.nearest_indices_cuda.launches
+        res = {"codes": [], "metrics": [], "state": []}
+        for reseed in ((False, True) if ema else (False,)):
+            tr.model._vq.ema_reset_threshold = DP_RESEED if reseed else 0.0
+            with torch.no_grad(), full_fp32():  # the codes the step's quantizer finds (Trainer.step's precision)
+                res["codes"].append(tr.model.get_latent_codes(tr.task.model_inputs(batch)[0]).reshape(-1).cpu())
+            res["metrics"].append({k: v.to("cpu", copy=True) for k, v in tr.step(batch).items()})
+            res["state"].append({k: v.to("cpu", copy=True) for k, v in tr.model.state_dict().items()})
+        res["grads"] = {k: p.grad.to("cpu", copy=True) for k, p in tr.model.named_parameters() if p.grad is not None}
+        res["launches"] = vq.nearest_indices_cuda.launches - launches
+        out[label] = res
+    torch.save(out, root / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_two_ranks(dev, card: str) -> None:
+    """Phase 15 (b): two ranks on the one card (gloo over CUDA tensors: NCCL refuses two ranks on one device,
+    so gloo is only the way to share it, not the production backend), spawned as two processes of this script,
+    each training the speech stage (gradient and EMA codebook) at full width on its 16 rows of a B = 32 batch,
+    against the single-process B = 32 step on the same rows in this process: the loss within LOSS_RTOL; every
+    gradient within GRAD_RTOL of its max; the weights after one Adam step within GRAD_RTOL x lr where the
+    gradient keeps its sign and lies above ADAM_EPS / GRAD_RTOL (Adam's first step is lr x the gradient's sign:
+    an entry whose gradient the ranks' rounding can flip steps either way); the codes under the tie rule; the EMA counts exact (of the codes the ranks found,
+    and equal to the single step's where the codes are); the EMA sums within DP_SUMS_RTOL of their max; the
+    codebook and the EMA buffers bitwise equal on both ranks; a second EMA step with every code re-seeded
+    (ema_reset_threshold DP_RESEED): the codebook of global rows k mod N within DP_SUMS_RTOL; the perplexity
+    exactly the single step's (and that of the ranks' codes)."""
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.ops.vq import perplexity_from_indices
+    from acoustic_locating_vq_vae_torch.train import SpeechVQVAETask, Trainer
+
+    t0 = time.perf_counter()
+    root = DP_ROOT / "two_ranks"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    g = torch.Generator().manual_seed(DP_SEED + 2)
+    batch = make_batch(DP_B, g, "cpu")
+    weights = {}
+    for label, ema in (("speech", False), ("speech EMA", True)):
+        model = SpeechVQVAETask(vq_ema=ema).build_model(g).to(dev)
+        with torch.no_grad(), full_fp32():
+            x = SpeechVQVAETask().model_inputs(make_batch(8, g, "cpu").map(lambda a: a.to(dev)))[0]
+            latent_codebook_(model, x, g)
+        weights[label] = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+    torch.save({"batch": batch._asdict(), **weights}, root / "inputs.pt")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
+    logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-u", str(REPO / "chip_smoke.py"), DP_RANK, str(r), str(port),
+                               str(root)], stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=REPO)
+             for r in range(2)]
+    try:
+        # the single-process B = 32 steps on the same rows, meanwhile
+        batch_dev = batch.map(lambda a: a.to(dev))
+        ref = {}
+        for label, ema in (("speech", False), ("speech EMA", True)):
+            tr = Trainer(SpeechVQVAETask(vq_ema=ema), device=dev, seed=DP_SEED, verbose=False)
+            tr.model.load_state_dict(weights[label])
+            res = {"codes": [], "metrics": [], "state": [], "latent": []}
+            for reseed in ((False, True) if ema else (False,)):
+                tr.model._vq.ema_reset_threshold = DP_RESEED if reseed else 0.0
+                with torch.no_grad(), full_fp32():
+                    x = tr.task.model_inputs(batch_dev)[0]
+                    res["codes"].append(tr.model.get_latent_codes(x).reshape(-1).cpu())
+                    z = tr.model.pre_vq_latent(x)  # the rows the quantizer sees, memory-order flatten
+                    res["latent"].append(z.reshape(-1, tr.model.embedding_dim).cpu())
+                res["metrics"].append({k: v.to("cpu", copy=True) for k, v in tr.step(batch_dev).items()})
+                res["state"].append({k: v.to("cpu", copy=True) for k, v in tr.model.state_dict().items()})
+            res["grads"] = {k: p.grad.to("cpu", copy=True) for k, p in tr.model.named_parameters() if p.grad is not None}
+            ref[label] = res
+            del tr
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        raise AssertionError("15 (b) ranks exited " + str(rcs) + ":\n" + "\n".join(
+            (root / f"rank{r}.log").read_text(encoding="utf-8")[-3000:] for r in range(2)))
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    lr = SpeechVQVAETask().learning_rate
+    lines = []
+    for label in ("speech", "speech EMA"):
+        a, b, want = ranks[0][label], ranks[1][label], ref[label]
+        k_codes = weights[label]["_vq._embedding.weight"].shape[0]
+        for step in range(len(want["state"])):
+            assert_bitwise(a["state"][step], b["state"][step], f"15 (b) {label} rank 0 vs rank 1, step {step}")
+            codes = torch.cat([a["codes"][step], b["codes"][step]])
+            mism, gap = check_codes(want["latent"][step], weights[label]["_vq._embedding.weight"] if step == 0 else
+                                    want["state"][step - 1]["_vq._embedding.weight"], codes, want["codes"][step],
+                                    f"15 (b) {label} codes, step {step}")
+            m, w = a["metrics"][step], want["metrics"][step]
+            if abs(float(m["loss"]) - float(w["loss"])) > LOSS_RTOL * abs(float(w["loss"])):
+                raise AssertionError(f"15 (b) {label} loss {float(m['loss'])} vs {float(w['loss'])}")
+            perp = perplexity_from_indices(codes.to(dev), k_codes).cpu()  # on the card, as the ranks compute it
+            if not torch.equal(m["perplexity"], perp) or (mism == 0 and not torch.equal(m["perplexity"],
+                                                                                        w["perplexity"])):
+                raise AssertionError(f"15 (b) {label} perplexity {float(m['perplexity'])}, of the ranks' codes "
+                                     f"{float(perp)}, single {float(w['perplexity'])}")
+            if label == "speech EMA":
+                before = weights[label] if step == 0 else want["state"][step - 1]
+                got_s, want_s = a["state"][step], want["state"][step]
+                if step == 0:
+                    counts = torch.bincount(codes.long(), minlength=k_codes).float()
+                    expect = 0.99 * before["_vq.ema_counts"] + (1 - 0.99) * counts
+                    if not torch.equal(got_s["_vq.ema_counts"], expect) or (
+                            mism == 0 and not torch.equal(got_s["_vq.ema_counts"], want_s["_vq.ema_counts"])):
+                        raise AssertionError(f"15 (b) EMA counts differ: {max_rel(got_s['_vq.ema_counts'], expect)}")
+                for key in ("_vq.ema_sums", "_vq._embedding.weight"):
+                    err = max_rel(got_s[key], want_s[key])
+                    if err > DP_SUMS_RTOL:
+                        raise AssertionError(f"15 (b) {label} {key} step {step}: {err} of its max, limit {DP_SUMS_RTOL}")
+                if step == 1 and not torch.equal(got_s["_vq.ema_counts"], torch.ones(k_codes)):
+                    raise AssertionError("15 (b) the forced re-seeding left codes live")
+            lines.append(f"{label} step {step}: loss {float(m['loss']):.6f} vs {float(w['loss']):.6f}, perplexity "
+                         f"{float(m['perplexity']):.4f} (equal), codes differ on {mism} tie rows")
+        # gradients, and the weights after the first Adam step where the gradient keeps its sign
+        worst_g = max(max_rel(a["grads"][k], g_) for k, g_ in want["grads"].items())
+        if worst_g > GRAD_RTOL:
+            raise AssertionError(f"15 (b) {label} gradient {worst_g} of its max, limit {GRAD_RTOL}")
+        if label == "speech":
+            worst_w, loose = 0.0, 0
+            for k, g_ in want["grads"].items():
+                # Adam's first step, lr g / (|g| + eps), is lr x the sign of g: it is the single step's within
+                # GRAD_RTOL x lr where the ranks' gradient keeps the sign (|g| > 2 |dg|) and eps is below
+                # GRAD_RTOL of |g|; elsewhere it may take either sign
+                keep = (g_.abs() > 2 * (a["grads"][k] - g_).abs()) & (g_.abs() > ADAM_EPS / GRAD_RTOL)
+                diff = (a["state"][0][k] - want["state"][0][k]).abs()
+                worst_w = max(worst_w, float(diff[keep].max()) / lr if keep.any() else 0.0)
+                loose += int((~keep).sum())
+            if worst_w > GRAD_RTOL:
+                raise AssertionError(f"15 (b) weights after one Adam step differ by {worst_w} x lr, limit {GRAD_RTOL}")
+            total = sum(g_.numel() for g_ in want["grads"].values())
+            lines.append(f"speech: worst gradient {worst_g:.3g} of its max; weights after one Adam step within "
+                         f"{worst_w:.3g} x lr on the {total - loose} of {total} entries whose gradient keeps its "
+                         f"sign and lies above eps / {GRAD_RTOL}")
+        else:
+            lines.append(f"speech EMA: worst gradient {worst_g:.3g} of its max")
+        if a["launches"] < 1:
+            raise AssertionError(f"15 (b) {label}: rank 0 never launched vq_nearest")
+    phase(15, "(b) two ranks on the one card, gloo over CUDA tensors, B = 32 (16 a rank) against the single "
+              "process: " + "; ".join(lines) + f"; codebook and EMA buffers bitwise equal on both ranks; "
+              f"{time.perf_counter() - t0:.1f} s ({card})")
+
+
+def dp_pipeline_and_tools(dev, counters, card: str) -> None:
+    """Phase 15 (c): the pipeline CLI under torchrun --nproc-per-node 1 --data-parallel (NCCL) and without it,
+    two processes at once, phase 10's configuration with DP_CLI_UPDATES updates a stage: every stage's final
+    bitwise equal; then bench_gpu.py once, and collect_encodings and the linear probe on the deploy store's
+    composite (phase 14's, or written here)."""
+    import numpy as np
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import collect_encodings, linear_angle_probe
+    from acoustic_locating_vq_vae_torch.train import LocationTask
+    from acoustic_locating_vq_vae_torch.utils import StageStore
+
+    root = DP_ROOT / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    def argv(store):
+        args = pipeline_argv(store)
+        args[args.index("--updates") + 1] = str(DP_CLI_UPDATES)
+        return args
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
+    cmds = {"dp": [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
+                   f"{PKG}.cli.run_pipeline", "--data-parallel", *argv(root / "dp")],
+            "plain": [sys.executable, "-u", "-m", f"{PKG}.cli.run_pipeline", *argv(root / "plain")]}
+    procs = {}
+    try:
+        for name, cmd in cmds.items():
+            procs[name] = subprocess.Popen(cmd, stdout=open(root / f"{name}.log", "w"), stderr=subprocess.STDOUT,
+                                           env=env, cwd=REPO)
+        rcs = {name: p.wait(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs.values()):
+        raise AssertionError(f"15 (c) CLI exits {rcs}:\n" + "\n".join(
+            (root / f"{n}.log").read_text(encoding="utf-8")[-3000:] for n in rcs))
+    cli_s = time.perf_counter() - t0
+    stores = {name: StageStore(str(root / name)) for name in cmds}
+    finals = [t for t, m in stores["plain"].stages().items() if m["metadata"].get("final")]
+    if len(finals) != 6:
+        raise AssertionError(f"15 (c) the plain CLI wrote finals {finals}")
+    for tag in finals:
+        got, want = stores["dp"].load_stage(tag), stores["plain"].load_stage(tag)
+        assert_bitwise(got["model"], want["model"], f"15 (c) {tag} weights")
+        if got.get("data_parallel", {}).get("world_size") != 1:
+            raise AssertionError(f"15 (c) {tag}: the data-parallel store's checkpoint lacks its ranks' generators")
+    log = (root / "dp.log").read_text(encoding="utf-8")
+    if "joint location evaluation" not in log:
+        raise AssertionError("15 (c) the data-parallel CLI did not evaluate on rank 0")
+    phase(15, f"(c) the pipeline CLI under torchrun --nproc-per-node 1 --data-parallel (NCCL) and without it, "
+              f"{DP_CLI_UPDATES} updates a stage, phase 10's configuration, two processes at once in {cli_s:.1f} s: "
+              f"the six stage finals bitwise equal ({card})")
+    shutil.rmtree(root)
+
+    # bench_gpu.py, once
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(REPO / "bench_gpu.py")], capture_output=True, text=True, env=env,
+                         cwd=REPO, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"15 (c) bench_gpu.py exited {run.returncode}:\n{run.stderr[-3000:]}")
+    bench = json.loads(run.stdout.strip().splitlines()[-1])
+    for k in ("metric", "value", "unit", "vs_baseline", "card", "fp32_peak_share", "uncached_frames_per_sec",
+              "bf16_cached_frames_per_sec"):
+        if k not in bench:
+            raise AssertionError(f"15 (c) bench_gpu.py printed no {k!r}")
+    print(run.stdout.strip().splitlines()[-1], flush=True)
+    phase(15, f"(c) bench_gpu.py in {time.perf_counter() - t0:.1f} s: cached {bench['value']} frames/s "
+              f"({bench['cached_step_ms']} ms a step, {bench['fp32_peak_share']:.2%} of the FP32 peak), uncached "
+              f"{bench['uncached_frames_per_sec']} ({bench['uncached_step_ms']} ms), bf16 cached "
+              f"{bench['bf16_cached_frames_per_sec']} ({bench['bf16_cached_step_ms']} ms); {bench['card']}")
+
+    # the latents of the deploy store's composite
+    t0 = time.perf_counter()
+    store_dir = DEPLOY_ROOT / "store"
+    if not (store_dir / "manifest.json").exists():
+        from acoustic_locating_vq_vae_torch.train import EchoedSpeechTask, checkpoint_metadata
+
+        task = EchoedSpeechTask()
+        StageStore(str(store_dir)).save_stage(
+            "finetune", {"model": composite_weights(task, torch.Generator().manual_seed(DEPLOY_SEED))},
+            metadata=checkpoint_metadata(task, True))
+    composite = StageStore(str(store_dir)).load_stage("finetune")["model"]
+    data = stage_batch(DP_LATENT_ROWS, torch.Generator(device=dev).manual_seed(DP_SEED + 3), dev)
+    task = LocationTask()
+    for c in counters:
+        c.launches = 0
+    enc = collect_encodings(task, composite, data, device=dev)
+    launches = {c.__name__: c.launches for c in counters}
+    k_codes = task.feature_width  # K of both branches: one-hot encodings are K wide
+    want_shapes = {"rir_encodings": (DP_LATENT_ROWS, 201 * k_codes), "speech_encodings": (DP_LATENT_ROWS, 500 * k_codes)}
+    for k, shape in want_shapes.items():
+        one_hot = enc[k].reshape(DP_LATENT_ROWS, -1, k_codes)
+        if enc[k].shape != shape or not np.all(one_hot.sum(-1) == 1.0) or not np.all((one_hot == 0) | (one_hot == 1)):
+            raise AssertionError(f"15 (c) {k}: shape {enc[k].shape}, want {shape} of one-hot rows")
+    if launches["nearest_indices_cuda"] != 2:
+        raise AssertionError(f"15 (c) collect_encodings launched {launches}, want vq_nearest twice (one chunk)")
+    import dataclasses
+
+    qtask = dataclasses.replace(task, input_mode="quantized")
+    rir = qtask.build_frozen(composite, dev)
+    with torch.no_grad():
+        feats = qtask.encodings_from_composite(rir, data.echoed_spec).cpu().numpy()
+    split = int(0.8 * DP_LATENT_ROWS)
+    probe = linear_angle_probe(feats[:split], enc["theta"][:split], feats[split:], enc["theta"][split:])
+    if not all(math.isfinite(v) for v in probe.values()):
+        raise AssertionError(f"15 (c) probe {probe}")
+    phase(15, f"(c) latents of the deploy store's composite on the card, {DP_LATENT_ROWS} rows: one-hot RIR "
+              f"encodings {enc['rir_encodings'].shape}, speech {enc['speech_encodings'].shape}, launches "
+              f"{launches}; the ridge probe on the RIR branch's quantized latents ({split}/{DP_LATENT_ROWS - split} "
+              f"train/test, random weights): R^2 {probe['r2']:.4f}, angle RMSE {probe['angle_rmse_radians']:.4f} rad; "
+              f"{time.perf_counter() - t0:.1f} s (the t-SNE, which needs scikit-learn, is not part of this phase)")
+    shutil.rmtree(DEPLOY_ROOT, ignore_errors=True)
+
+
+def data_parallel_phase(dev, counters, card: str) -> None:
+    """Phase 15: data parallelism (``parallel/``, ``Trainer(data_parallel=...)``, the pipeline under torchrun)
+    and the rest of eval/ on the card; (a), (b), (c) above."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    DP_ROOT.mkdir(parents=True)
+    dp_world_one(dev, counters, card)
+    dp_two_ranks(dev, card)
+    dp_pipeline_and_tools(dev, counters, card)
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    phase(15, f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def manifest_task(stage: str, cfg, compute_dtype: str = "float32"):
@@ -2955,6 +3371,18 @@ def main() -> int:
 
     if DEPLOY in sys.argv[1:]:
         deploy_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
+        shutil.rmtree(DEPLOY_ROOT, ignore_errors=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if DP in sys.argv[1:]:
+        # phase 15, then the kernels' checks and timings, for the kernels line of phase 15's launches
+        data_parallel_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
+        max_err = check_nearest(vq, nearest_indices_cuda, dev)
+        accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
+        time_training_kernels(dev, card)
+        time_stage_kernels(dev, card)
+        print_kernels_line(max_err, accum_err)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
@@ -3176,8 +3604,18 @@ def main() -> int:
     # ---- phase 14: the deploy surface: exported artifacts loaded cold, the deploy and evaluation CLIs
     deploy_phase(dev, counters, card)
 
-    # one entry for each kernel and shape that was timed and that the main path ran, with the launches it
-    # made at that shape; every kernel of the path has an entry
+    # ---- phase 15: data parallelism (NCCL at world size 1, two ranks on the card, the CLI under torchrun)
+    # and the rest of eval/ (bench_gpu.py, the latents of phase 14's store)
+    data_parallel_phase(dev, counters, card)
+
+    print_kernels_line(max_err, accum_err)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def print_kernels_line(max_err: float, accum_err: float) -> None:
+    """The ``kernels`` line: one entry for each kernel and shape that was timed and that the main path ran,
+    with the launches it made at that shape; every kernel of the path has an entry."""
     names = {"vq_nearest": ("vq_nearest.cu", 49, max_err), "vq_codebook_grad": ("vq_codebook_accum.cu", 68, accum_err),
              "vq_codebook_stats": ("vq_codebook_accum.cu", 150, accum_err)}
     entries = [{"name": name, "route": "cuda", "source": f"src/acoustic_locating_vq_vae_torch/csrc/{names[name][0]}",
@@ -3190,12 +3628,13 @@ def main() -> int:
     missing = set(names) - {e["name"] for e in entries}
     if missing:
         raise AssertionError(f"no timed shape of {sorted(missing)} was launched by the main path: {dict(SHAPE_LAUNCHES)}")
-    phase(10, "launches of the main path's checked and timed runs by kernel and shape: "
-             + ", ".join(f"{name} ({n}, {d}, {k}) {c}" for (name, n, d, k), c in sorted(SHAPE_LAUNCHES.items())))
+    print("launches of the main path's checked and timed runs by kernel and shape: "
+          + ", ".join(f"{name} ({n}, {d}, {k}) {c}" for (name, n, d, k), c in sorted(SHAPE_LAUNCHES.items())),
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":
+    if DP_RANK in sys.argv[1:]:
+        sys.exit(dp_rank_main(sys.argv[sys.argv.index(DP_RANK) + 1:]))
     sys.exit(main())

@@ -30,8 +30,10 @@ train   Task and the six stage tasks (SpeechVQVAETask, RirVQVAETask,
 eval    weights from the JAX package's parameter trees, the serving closure,
         the exported localizer artifact (export_localizer, load_localizer),
         tracking and resynthesis helpers, the location evaluation
+parallel data parallelism over torch.distributed process groups (the
+        rank's handle, its block of a batch, the explicit-collective step)
 cli     the command-line entry points (pipeline, dataset, export, locate,
-        track, evaluation sweeps, resynthesis)
+        track, evaluation sweeps, resynthesis, latent analysis)
 utils   device rules (full_fp32, resolve_device), the stage store
 """
 
@@ -39,7 +41,7 @@ __version__ = "0.1.0"
 
 import importlib
 
-__all__ = ["cli", "data", "dsp", "eval", "models", "ops", "train", "utils", "__version__"]
+__all__ = ["cli", "data", "dsp", "eval", "models", "ops", "parallel", "train", "utils", "__version__"]
 
 
 def __getattr__(name: str):

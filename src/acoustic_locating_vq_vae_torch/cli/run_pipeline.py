@@ -36,6 +36,16 @@ exact, is two commands on one store: the first without ``--rir-bank`` and
 --rir-bank-rt60s 8 --rir-bank-radii 8 --bank-pretrain-updates 350000
 --updates 400000``; one command with all of it trains stages 1-5 from the
 bank too. ``--librispeech-dir`` is not ported.
+
+Data parallelism over N cards of one machine (the JAX ``--mesh-data``)::
+
+    torchrun --nproc-per-node N -m acoustic_locating_vq_vae_torch.cli.run_pipeline --data-parallel ...
+
+Every rank makes (or reads) the same sets from ``--seed`` and trains its
+share of each batch on ``cuda:{LOCAL_RANK}`` over NCCL; rank 0 alone writes
+the store, prints and evaluates. ``--mesh-model``, ``--mesh-seq``,
+``--mesh-slices``, ``--model-parallel`` and ``--sequence-parallel`` are
+accepted and raise for anything but 1 / off: they are the next slice.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ import sys
 import numpy as np
 
 __all__ = [
-    "add_data_args", "add_model_args", "add_synthesis_args", "build_parser", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
+    "add_data_args", "add_mesh_args", "add_model_args", "add_synthesis_args", "build_parser", "data_parallel", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
     "recipe_kwargs", "smoke_config", "synthesis_kwargs",
 ]
 
@@ -115,6 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="synthesize a fresh training batch inside every step (infinite data; no training dataset needed)",
     )
     add_synthesis_args(p)
+    add_mesh_args(p)
     p.add_argument(
         "--rir-bank", type=int, default=0, metavar="N_THETA",
         help="precompute an N_THETA-angle RIR bank once and draw per-sample RIRs from it (grid labels; spacing "
@@ -182,6 +193,41 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
                    help="conv-stack compute dtype of every stage and of the evaluations (parameters, losses, the "
                    "VQ assignment and the location head stay float32)")
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """The parallelism flags (the JAX ``scripts/_common.py:46-63``): the data
+    axis, and the axes of the next slice, which raise."""
+    p.add_argument("--data-parallel", action="store_true",
+                   help="train data-parallel over the ranks torchrun started (torchrun --nproc-per-node N): one card "
+                   "per rank, NCCL, each rank its block of every batch; rank 0 writes the store")
+    p.add_argument("--mesh-data", type=int, default=-1,
+                   help="(--data-parallel) data-parallel axis size; -1 (default) = every rank")
+    p.add_argument("--mesh-model", type=int, default=1, help="model-parallel axis size (only 1: the next slice)")
+    p.add_argument("--mesh-seq", type=int, default=1, help="sequence-parallel axis size (only 1: the next slice)")
+    p.add_argument("--mesh-slices", type=int, default=1, help="multi-slice layouts (only 1: the next slice)")
+    p.add_argument("--model-parallel", action="store_true", help="shard large parameters (the next slice: raises)")
+    p.add_argument("--sequence-parallel", action="store_true", help="shard the time axis (the next slice: raises)")
+
+
+def data_parallel(args):
+    """The rank's :class:`..parallel.DataParallel` handle for
+    ``--data-parallel`` (joining the group torchrun set up, on
+    ``cuda:{LOCAL_RANK}``, which replaces ``args.device``), or None; the
+    axes of the next slice raise ``NotImplementedError``."""
+    from ..parallel import check_mesh, init_data_parallel
+
+    check_mesh(args.mesh_model, args.mesh_seq, args.mesh_slices,
+               sequence_parallel=args.sequence_parallel or args.model_parallel)
+    if not args.data_parallel:
+        if args.mesh_data not in (-1, 1):
+            raise SystemExit(f"--mesh-data {args.mesh_data} needs --data-parallel under torchrun --nproc-per-node N")
+        return None
+    dp = init_data_parallel(device=args.device)
+    if args.mesh_data not in (-1, dp.world_size):
+        raise SystemExit(f"--mesh-data {args.mesh_data} != the {dp.world_size} ranks torchrun started")
+    args.device = str(dp.device)
+    return dp
 
 
 def add_synthesis_args(p: argparse.ArgumentParser) -> None:
@@ -347,11 +393,22 @@ def recipe_kwargs(args) -> dict:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.bank_pretrain_updates and not args.joint_location:
+        raise SystemExit("--bank-pretrain-updates needs --joint-location")
+    dp = data_parallel(args)
+    try:
+        _train_and_evaluate(args, dp)
+    finally:
+        if dp is not None:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
+
+
+def _train_and_evaluate(args, dp) -> None:
     from ..eval import evaluate_joint_location, evaluate_location
     from ..train import JointLocationTask, LocationTask, run_pipeline
 
-    if args.bank_pretrain_updates and not args.joint_location:
-        raise SystemExit("--bank-pretrain-updates needs --joint-location")
     if args.smoke and args.updates is None:
         args.updates = 20
     config, train, val = load_datasets(args)
@@ -372,8 +429,10 @@ def main(argv=None) -> None:
         ),
         resume=args.resume, ckpt_every=args.ckpt_every, device=args.device, log_every=args.log_every,
         profile_dir=args.profile_dir, cache_frozen=args.cache_frozen, keep_checkpoints=args.keep_checkpoints,
-        **recipe, **otf_kwargs(args),
+        data_parallel=dp, **recipe, **otf_kwargs(args),
     )
+    if dp is not None and dp.rank != 0:
+        return  # rank 0 evaluates: every rank holds the same weights
 
     fixed = args.preset == "fixed"
     flatten = flatten if flatten is not None else not fixed

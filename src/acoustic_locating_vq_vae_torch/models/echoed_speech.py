@@ -137,6 +137,8 @@ class EchoedSpeechReconModel(nn.Module):
                 self.speech_model.codes_to_latent(speech_codes), self.rir_model.codes_to_latent(rir_codes)
             )
         recon = self._decoder(quantized, train=train, generator=generator)
-        speech_perp = perplexity_from_indices(speech_codes, self.speech_model.num_embeddings)
-        rir_perp = perplexity_from_indices(rir_codes, self.rir_model.num_embeddings)
+        # over the global batch where the branches' quantizers reduce over a data-parallel group
+        speech_perp = perplexity_from_indices(speech_codes, self.speech_model.num_embeddings,
+                                              self.speech_model._vq.process_group)
+        rir_perp = perplexity_from_indices(rir_codes, self.rir_model.num_embeddings, self.rir_model._vq.process_group)
         return recon, speech_perp, rir_perp

@@ -15,6 +15,15 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/ops/vq.py``:
   ``self.training``) from the batch's per-code counts and sums, with
   optional dead-code restart; the loss is ``beta * e_latent`` only.
 
+Under data parallelism (``process_group``, set by the trainer for its steps
+through :func:`global_statistics`) every rank quantizes its own rows and the
+statistics are the global batch's, as GSPMD makes them in the JAX package
+(``ops/vq.py:159-176, 212-220``): the EMA counts and sums are summed over the
+ranks before the decay, the perplexity is taken from the global code counts,
+and a dead code k restarts from global row ``k mod N_global`` (the ranks'
+blocks in rank order), so the codebook and the EMA buffers stay bitwise equal
+on every rank.
+
 Where the work runs follows the tensor alone: a CUDA tensor goes to the
 hand-written kernels (``ops/vq_cuda.py``: ``csrc/vq_nearest.cu`` for the
 assignment, ``csrc/vq_codebook_accum.cu`` for the codebook gradient and the
@@ -27,9 +36,11 @@ localizer all reach the kernel through one graph node.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -43,7 +54,7 @@ VQ_NEAREST_OP = "acoustic_locating_vq_vae_torch::vq_nearest"
 __all__ = [
     "VectorQuantizer", "VQOutput", "VQ_NEAREST_OP", "vq_nearest", "nearest_indices", "nearest_codebook", "assign",
     "codebook_grad", "codebook_stats", "codebook_grad_plain", "codebook_stats_plain",
-    "perplexity_from_indices",
+    "perplexity_from_indices", "global_statistics",
 ]
 
 
@@ -156,15 +167,59 @@ def assign(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, 
     return _Assign.apply(flat_x, codebook)
 
 
-def perplexity_from_indices(indices: torch.Tensor, num_embeddings: int) -> torch.Tensor:
+def perplexity_from_indices(indices: torch.Tensor, num_embeddings: int, group=None) -> torch.Tensor:
     """exp(entropy of code usage) over the given assignments
-    (vector_quantizer.py:55-56)."""
+    (vector_quantizer.py:55-56); with a process ``group``, over every rank's
+    assignments (the code counts summed over the ranks, JAX ops/vq.py:212-220)."""
     # int64 in: bincount's count dtype is int64 on every device and in every torch version's fake
     # kernel (some give int32 for int32 ids), so an exported graph's dtype checks hold when it runs
     flat = indices.reshape(-1).long()
     counts = torch.bincount(flat, minlength=num_embeddings).to(torch.float32)
-    avg_probs = counts / flat.shape[0]
+    if group is None:
+        avg_probs = counts / flat.shape[0]
+    else:
+        dist.all_reduce(counts, group=group)
+        n = counts.sum()  # the global rows, exact: an integer below 2**24
+        # the arithmetic of the line above, so that a world of one is bitwise one device: a CUDA tensor divided
+        # by a Python number is multiplied by the number's float32 reciprocal, a CPU tensor is divided by it
+        avg_probs = counts * n.reciprocal() if counts.is_cuda else counts / n
     return torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
+
+
+def _global_seed_rows(flat: torch.Tensor, k: int, group) -> torch.Tensor:
+    """Row ``i mod N_global`` of the global batch for each code ``i``, the
+    ranks' blocks of ``flat`` laid end to end in rank order: each rank writes
+    the rows it owns into a zero-filled ``(k, D)`` buffer, and the buffers
+    are summed (adding zeros is exact). Nothing waits for the device."""
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    n_local = flat.shape[0]
+    sizes = torch.zeros(world, dtype=torch.int64, device=flat.device)
+    sizes[rank] = n_local
+    dist.all_reduce(sizes, group=group)
+    offset = torch.sum(sizes[:rank])
+    local = torch.arange(k, device=flat.device) % torch.sum(sizes) - offset
+    own = (local >= 0) & (local < n_local)
+    rows = torch.where(own[:, None], flat[local.clamp(0, n_local - 1)], torch.zeros((), dtype=flat.dtype,
+                                                                                      device=flat.device))
+    dist.all_reduce(rows, group=group)
+    return rows
+
+
+@contextlib.contextmanager
+def global_statistics(module: nn.Module, group):
+    """While open, every :class:`VectorQuantizer` in ``module`` reduces its
+    statistics over the process ``group`` (None: the rank's own rows); the
+    previous groups come back on exit. The trainer opens it around its steps
+    only, so that building a cache or serving from its model stays local."""
+    vqs = [m for m in module.modules() if isinstance(m, VectorQuantizer)]
+    saved = [m.process_group for m in vqs]
+    for m in vqs:
+        m.process_group = group
+    try:
+        yield
+    finally:
+        for m, g in zip(vqs, saved):
+            m.process_group = g
 
 
 EMA_EPS = 1e-5  # Laplace smoothing of the EMA counts (JAX ops/vq.py ema_eps)
@@ -181,7 +236,9 @@ class VQOutput(NamedTuple):
 class VectorQuantizer(nn.Module):
     """Vector quantizer. The codebook is ``_embedding.weight`` (K, D), the
     reference's key, drawn U(-1/K, 1/K): a parameter in gradient mode, a
-    buffer (beside ``ema_counts`` and ``ema_sums``) in EMA mode."""
+    buffer (beside ``ema_counts`` and ``ema_sums``) in EMA mode.
+    ``process_group`` reduces the statistics over the ranks of a data-parallel
+    group (see the module docstring and :func:`global_statistics`)."""
 
     def __init__(
         self,
@@ -192,8 +249,10 @@ class VectorQuantizer(nn.Module):
         ema: bool = False,
         ema_decay: float = 0.99,
         ema_reset_threshold: float = 0.0,
+        process_group=None,
     ):
         super().__init__()
+        self.process_group = process_group
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.commitment_cost = commitment_cost
@@ -217,15 +276,23 @@ class VectorQuantizer(nn.Module):
     @torch.no_grad()
     def _ema_update(self, indices: torch.Tensor, flat: torch.Tensor) -> None:
         """The JAX ``ops/vq.py:158-201`` update, in place on the buffers."""
-        k = self.num_embeddings
+        k, group = self.num_embeddings, self.process_group
         counts, sums = codebook_stats(indices, flat, k)
+        if group is not None:
+            # the global batch's statistics: one sum over the ranks of counts and sums together
+            both = torch.cat([counts[:, None], sums], dim=1)
+            dist.all_reduce(both, group=group)
+            counts, sums = both[:, 0], both[:, 1:]
         decay = self.ema_decay
         new_counts = decay * self.ema_counts + (1 - decay) * counts
         new_sums = decay * self.ema_sums + (1 - decay) * sums
         if self.ema_reset_threshold > 0.0:
             # dead codes restart from batch rows, code id mod rows: reproducible
             dead = new_counts < self.ema_reset_threshold
-            seed_rows = flat[torch.arange(k, device=flat.device) % flat.shape[0]]
+            if group is None:
+                seed_rows = flat[torch.arange(k, device=flat.device) % flat.shape[0]]
+            else:
+                seed_rows = _global_seed_rows(flat, k, group)
             new_sums = torch.where(dead[:, None], seed_rows, new_sums)
             new_counts = torch.where(dead, torch.ones_like(new_counts), new_counts)
         n = torch.sum(new_counts)
@@ -253,7 +320,7 @@ class VectorQuantizer(nn.Module):
 
         quantized = quantized.reshape(inputs.shape)
         ste = inputs + (quantized - inputs).detach()
-        perplexity = perplexity_from_indices(indices, self.num_embeddings)
+        perplexity = perplexity_from_indices(indices, self.num_embeddings, self.process_group)
         encodings = (
             F.one_hot(indices.long(), self.num_embeddings).to(flat.dtype) if need_encodings else None
         )

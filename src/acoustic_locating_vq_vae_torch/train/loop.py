@@ -45,6 +45,21 @@ checkpoints (:817-918):
   raises :class:`Preempted`; ``fit(resume=True)`` continues from the newest
   periodic checkpoint;
 * ``profile_dir`` traces steady-state steps with ``torch.profiler``;
+* with ``data_parallel`` (a :class:`..parallel.DataParallel` handle; JAX
+  :196-212, :359-420) every rank trains on its block of the global batch:
+  it holds its contiguous block of each resident set and draws ``B / W``
+  rows of it (stratified sampling, its sampling generator seeded from
+  ``seed + 1`` with the rank folded in), or, where the batch or the set does
+  not divide by the world size W, holds the whole set and keeps its block of
+  global indices drawn from a generator shared by every rank (with a
+  warning); on-the-fly it synthesizes its block from a synthesis generator
+  with the rank folded in. Every rank draws the weights from ``seed``
+  (checked bitwise at construction) and the jitter decisions from the same
+  generator. A step reduces the vector quantizers' statistics, the
+  gradients and the metrics over the ranks (``parallel/dp_step.py``), so it
+  is the global batch's step; rank 0 alone writes checkpoints, which carry
+  every rank's generators (a resume at another world size raises), and a
+  SIGTERM on any rank stops every rank at the same step boundary;
 * convolutions and matrix products run in full float32 (TF32 off), the
   convolutions with cuDNN's deterministic algorithms (``utils/device.py``);
   a task with ``compute_dtype="bfloat16"`` runs its conv stacks in bf16 under
@@ -52,7 +67,7 @@ checkpoints (:817-918):
   algorithm; nothing falls back to float32), while the parameters, Adam's
   state, the checkpoints, the cache's codes and the losses stay float32.
 
-The mesh and host-staged data come in later slices.
+Sequence and tensor sharding and host-staged data come in later slices.
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import signal
 import time
+import warnings
 from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -67,6 +83,10 @@ import torch
 
 from ..data.dataset import sample_without_replacement
 from ..data.synth import SampleBatch, synthesize_batch
+from ..ops.jitter import Jitter
+from ..ops.vq import global_statistics
+from ..parallel.dp_step import global_rows, make_dp_train_step, reduce_metrics
+from ..parallel.mesh import DataParallel, check_replicated, rank_seed, shard_batch
 from ..utils.checkpoint import StageStore
 from ..utils.device import deterministic_convs, full_fp32, resolve_device
 from ..utils.profiling import trace
@@ -182,7 +202,13 @@ class Trainer:
     ``checkpoint_dir`` is a :class:`StageStore` root for the stage's
     checkpoints; ``keep_checkpoints`` > 0 keeps only the newest N periodic
     ones (finals are kept). ``profile_dir`` traces steps ``start + 2`` to
-    ``start + 7`` of :meth:`fit` into ``<profile_dir>/<task name>.json``."""
+    ``start + 7`` of :meth:`fit` into ``<profile_dir>/<task name>.json``.
+
+    ``data_parallel`` trains this rank's share of every batch in a
+    data-parallel group (see the module docstring); the trainer runs on the
+    handle's device (``device`` must name the same type), only rank 0 prints,
+    profiles and writes checkpoints, and a handle without a group
+    (``parallel.local_mesh``) is the same as none."""
 
     def __init__(
         self,
@@ -199,8 +225,15 @@ class Trainer:
         profile_dir: Optional[str] = None,
         on_the_fly: bool = False,
         synth_kwargs: Optional[Mapping] = None,
+        data_parallel: Optional[DataParallel] = None,
     ):
         self.task = task
+        self.dp = data_parallel if data_parallel is not None and data_parallel.distributed else None
+        rank, self.world_size = (self.dp.rank, self.dp.world_size) if self.dp else (0, 1)
+        if self.dp is not None:
+            if torch.device(device).type != self.dp.device.type:
+                raise ValueError(f"device {device} is not the data-parallel rank's device {self.dp.device}")
+            device = self.dp.device
         self.device = resolve_device(device)
         self.on_the_fly = on_the_fly
         self.set_synthesis(synth_kwargs)
@@ -210,19 +243,34 @@ class Trainer:
         # state, keyed by parameter order, is the same for every trainer of
         # the task
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=task.learning_rate)
-        self.sample_generator = torch.Generator().manual_seed(seed + 1)
+        # the sampling and synthesis streams fold the rank in (rank 0's are the single-process ones); the
+        # jitter decisions are shared by every rank, as the batch-shared jitter needs
+        self.sample_generator = torch.Generator().manual_seed(rank_seed(seed + 1, rank))
+        self.shared_sample_generator = torch.Generator().manual_seed(seed + 1) if self.dp else None
         self.jitter_generator = torch.Generator().manual_seed(seed + 2)
-        self.synth_generator = torch.Generator(self.device).manual_seed(seed + 3) if on_the_fly else None
+        self.synth_generator = (torch.Generator(self.device).manual_seed(rank_seed(seed + 3, rank))
+                                if on_the_fly else None)
         self.step_count = 0  # steps taken, eval steps included (the JAX state.step)
         self.log_every = log_every
         self.val_replaces_train = val_replaces_train
-        self.verbose = verbose
+        self.verbose = verbose and rank == 0
         self.cache_frozen = cache_frozen
         self.store = StageStore(checkpoint_dir) if checkpoint_dir else None
         self.keep_checkpoints = int(keep_checkpoints)
-        self.profile_dir = profile_dir
+        self.profile_dir = profile_dir if rank == 0 else None
+        if self.dp is not None:
+            # the explicit-collective step (parallel/dp_step.py), on a (batch, cache rows) pair
+            self._dp_step = make_dp_train_step(lambda bc: self._loss(bc[0], True, bc[1]), self.optimizer, self.dp)
+            if any(m.per_batch for m in self.model.modules() if isinstance(m, Jitter)):
+                raise NotImplementedError("per-sample jitter under data parallelism would draw each rank's decisions "
+                                          "apart from the global batch's; the compat batch-shared jitter is supported")
+            check_replicated(self.model, self.dp)
+            if self.frozen_rir is not None:
+                check_replicated(self.frozen_rir, self.dp, "frozen weights")
         # set by the SIGTERM handler fit() installs, or request_preemption()
         self._preempt_requested = False
+        # while fit runs: the rows of each set it holds (its speech_spec's id) -> the whole set's rows
+        self._held: Dict[int, int] = {}
 
     def set_synthesis(self, synth_kwargs: Optional[Mapping]) -> None:
         """Set the on-the-fly synthesis options (``synth_kwargs`` of the
@@ -250,8 +298,9 @@ class Trainer:
         synthesized on the device from the synthesis generator: with a
         speech pool, each sample's utterance is a pool row drawn first, then
         ``synthesize_batch`` draws the rest (the order ``make_dataset``
-        draws a batch in), from the bank where one is set."""
-        gen, b = self.synth_generator, self.task.batch_size
+        draws a batch in), from the bank where one is set. Under data
+        parallelism, this rank's block of the batch, from its own generator."""
+        gen, b = self.synth_generator, self._block_size(self.task.batch_size)
         kw = dict(self.synth_kwargs)
         if self.rir_bank is not None:
             kw["rir_bank"] = self.rir_bank
@@ -274,10 +323,73 @@ class Trainer:
                 f"keep {tuple(self.task.resident_fields)}"
             )
 
-    def _indices(self, data: SampleBatch) -> torch.Tensor:
+    # ------------------------------------------------------- batch sampling
+
+    def _block_size(self, n: int) -> int:
+        """The size of this rank's block of ``n`` rows."""
+        if self.dp is None:
+            return n
+        lo, hi = self.dp.block(n)
+        return hi - lo
+
+    def _stratified(self, n: int) -> bool:
+        """Whether a set of ``n`` rows is sampled per rank from the rank's own
+        block: the batch and the set divide by the world size (always in a
+        world of one)."""
+        take = min(self.task.batch_size, n)
+        return take % self.world_size == 0 and n % self.world_size == 0
+
+    def hold(self, data: SampleBatch) -> SampleBatch:
+        """The rows of the resident set ``data`` this rank keeps: its block
+        where the set is sampled stratified, else the whole set (with the JAX
+        trainer's warning); ``data`` itself without data parallelism."""
+        if self.dp is None:
+            return data
         n = int(data.speech_spec.shape[0])
-        idx = sample_without_replacement(self.sample_generator, n, min(self.task.batch_size, n))
-        return idx.to(data.speech_spec.device)
+        if self._stratified(n):
+            return shard_batch(data, self.dp)
+        warnings.warn(  # the JAX trainer's warning, train/loop.py:400-411
+            f"[{self.task.name}] batch {min(self.task.batch_size, n)} or dataset size {n} not divisible by the "
+            f"data-parallel world size {self.world_size}: every rank holds the whole set and draws the global batch "
+            "from a shared generator (slow). Pad the batch/dataset to a multiple of the world size for stratified "
+            "sampling.", stacklevel=3)
+        return data
+
+    def _hold_on_device(self, data: SampleBatch) -> SampleBatch:
+        """:meth:`hold` of a whole set, on the trainer's device, registered
+        so that :meth:`sample` of it draws into the held rows."""
+        n = int(data.speech_spec.shape[0])
+        held = self.to_device(self.hold(data))
+        self._held[id(held.speech_spec)] = n
+        return held
+
+    def _held_indices(self, n: int, device) -> torch.Tensor:
+        """Indices of this rank's rows of a fresh batch from a set of ``n``
+        rows, into the rows it holds (:meth:`hold`)."""
+        take = min(self.task.batch_size, n)
+        if self.dp is None:
+            idx = sample_without_replacement(self.sample_generator, n, take)
+        elif self._stratified(n):
+            idx = sample_without_replacement(self.sample_generator, n // self.world_size, take // self.world_size)
+        else:
+            if take < self.world_size:
+                raise ValueError(f"a batch of {take} rows leaves a rank of {self.world_size} without rows")
+            lo, hi = self.dp.block(take)
+            idx = sample_without_replacement(self.shared_sample_generator, n, take)[lo:hi]
+        return idx.to(device)
+
+    def _indices(self, data: SampleBatch) -> torch.Tensor:
+        """Indices of this rank's rows of a fresh batch: into the rows it
+        holds where ``data`` is a set :meth:`fit` holds, else into the whole
+        set ``data``."""
+        n = int(data.speech_spec.shape[0])
+        held = self._held.get(id(data.speech_spec))
+        if held is not None:
+            return self._held_indices(held, data.speech_spec.device)
+        idx = self._held_indices(n, data.speech_spec.device)
+        if self.dp is not None and self._stratified(n):
+            idx = idx + self.dp.block(n)[0]
+        return idx
 
     @staticmethod
     def _rows(data: SampleBatch, idx: torch.Tensor) -> SampleBatch:
@@ -285,7 +397,8 @@ class Trainer:
 
     def sample(self, data: SampleBatch) -> SampleBatch:
         """A random batch of ``task.batch_size`` distinct rows (the whole set
-        if it is smaller), bf16-stored arrays cast to float32."""
+        if it is smaller), bf16-stored arrays cast to float32; under data
+        parallelism this rank's rows of it, ``data`` being the whole set."""
         return self._rows(data, self._indices(data))
 
     def sample_cached(self, data: SampleBatch, cache: Cache) -> Tuple[SampleBatch, Cache]:
@@ -319,19 +432,33 @@ class Trainer:
         """One train step (loss, backward, Adam) or eval step on an already
         sampled batch, from its cache rows where given; returns the metrics
         as 0-d tensors, ``loss`` among them, without waiting for the device.
-        Advances the step count."""
-        with full_fp32(), deterministic_convs():
-            if train:
+        Advances the step count.
+
+        Under data parallelism ``batch`` is this rank's block of the global
+        batch: the vector quantizers' statistics, the gradients (before Adam)
+        and the metrics are reduced over the ranks, each rank weighted by its
+        share of the global rows, so every rank returns the global batch's
+        metrics and takes the same update."""
+        dp = self.dp
+        stats = global_statistics(self.model, dp.group) if dp else contextlib.nullcontext()
+        with full_fp32(), deterministic_convs(), stats:
+            if train and dp is not None:
+                metrics = self._dp_step((batch, cache), rows=int(batch.speech_spec.shape[0]))
+            elif train:
                 self.optimizer.zero_grad(set_to_none=True)
                 loss, metrics = self._loss(batch, True, cache)
                 loss.backward()
                 self.optimizer.step()
+                metrics = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
             else:
                 with torch.no_grad():
                     loss, metrics = self._loss(batch, False, cache)
+                metrics = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
+                if dp is not None:
+                    rows = int(batch.speech_spec.shape[0])
+                    metrics = reduce_metrics(metrics, dp, rows / global_rows(rows, dp, self.device),
+                                             [k for k in metrics if k.endswith("perplexity")])
         self.step_count += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
         return metrics
 
     # ------------------------------------------------------------------- fit
@@ -366,7 +493,10 @@ class Trainer:
 
         While running, SIGTERM triggers graceful preemption: the loop saves a
         resumable checkpoint at the next step boundary and raises
-        :class:`Preempted`; nothing is saved before the first step."""
+        :class:`Preempted`; nothing is saved before the first step. Under
+        data parallelism ``train_data`` and ``val_data`` are the whole sets
+        (each rank keeps its rows, :meth:`hold`), and a signal on any rank
+        stops them all at the same boundary."""
         installed = False
         try:
             prev = signal.signal(signal.SIGTERM, lambda *_: self.request_preemption())
@@ -379,6 +509,7 @@ class Trainer:
             if installed:
                 signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
             self._preempt_requested = False
+            self._held.clear()
 
     def _fit(self, train_data, val_data, num_updates, resume, save_final) -> TrainHistory:
         num_updates = num_updates or self.task.num_updates
@@ -395,12 +526,12 @@ class Trainer:
         if self.on_the_fly:
             train_data = None
         else:
-            train_data = self.to_device(train_data)
+            train_data = self._hold_on_device(train_data)
             self._check_resident_fields(train_data)
             train_cache = self.build_cache(train_data) if caching else None
         val_cache = None
         if val_data is not None:
-            val_data = self.to_device(val_data)
+            val_data = self._hold_on_device(val_data)
             if caching and self.val_replaces_train:
                 val_cache = self.build_cache(val_data)
         if self.verbose and caching:
@@ -412,7 +543,7 @@ class Trainer:
         trace_window = (start + 2, min(start + 7, num_updates))  # steady-state steps
         with contextlib.ExitStack() as tracing:
             for i in range(start, num_updates):
-                if self._preempt_requested:
+                if self.dp.any(self._preempt_requested) if self.dp else self._preempt_requested:
                     tracing.close()
                     if self.store is not None and i > start:
                         # the periodic tag convention, so restore_latest finds it
@@ -455,10 +586,19 @@ class Trainer:
 
     # ----------------------------------------------------------- checkpoints
 
+    def _gather_states(self, gen: torch.Generator) -> torch.Tensor:
+        """Every rank's state of its ``gen``, ``(world_size, n)`` uint8 on
+        the CPU (row r: rank r's)."""
+        state = gen.get_state().to(self.device, torch.int32)
+        return self.dp.gather_rows(state).to("cpu", torch.uint8)
+
     def save_checkpoint(self, tag: str, final: bool = False) -> None:
         """Save the trainer's state under ``tag``, with the task's
         evaluation-relevant configuration as metadata; then retire all but
-        the newest ``keep_checkpoints`` periodic checkpoints of the task."""
+        the newest ``keep_checkpoints`` periodic checkpoints of the task.
+        Under data parallelism every rank calls it (the generators' states
+        are gathered) and rank 0 alone writes; the call returns once the
+        checkpoint is in the store."""
         tree = {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -468,16 +608,25 @@ class Trainer:
         }
         if self.on_the_fly:
             tree["synth_generator"] = self.synth_generator.get_state()
-        self.store.save_stage(tag, tree, step=self.step_count, metadata=checkpoint_metadata(self.task, final))
-        if not final and self.keep_checkpoints > 0:
-            prefix = f"{self.task.name}_"
-            periodic = sorted(
-                ((t, m) for t, m in self.store.stages().items()
-                 if t.startswith(prefix) and t[len(prefix):].isdigit()),
-                key=lambda x: _ckpt_rank(x[1]),
-            )
-            for t, _ in periodic[: -self.keep_checkpoints]:
-                self.store.delete_stage(t)
+        if self.dp is not None:
+            ranks = {"world_size": self.world_size, "sample_generators": self._gather_states(self.sample_generator),
+                     "shared_sample_generator": self.shared_sample_generator.get_state()}
+            if self.on_the_fly:
+                ranks["synth_generators"] = self._gather_states(self.synth_generator)
+            tree["data_parallel"] = ranks
+        if self.dp is None or self.dp.rank == 0:
+            self.store.save_stage(tag, tree, step=self.step_count, metadata=checkpoint_metadata(self.task, final))
+            if not final and self.keep_checkpoints > 0:
+                prefix = f"{self.task.name}_"
+                periodic = sorted(
+                    ((t, m) for t, m in self.store.stages().items()
+                     if t.startswith(prefix) and t[len(prefix):].isdigit()),
+                    key=lambda x: _ckpt_rank(x[1]),
+                )
+                for t, _ in periodic[: -self.keep_checkpoints]:
+                    self.store.delete_stage(t)
+        if self.dp is not None:
+            self.dp.barrier()
 
     def load_stage_params(self, name: str) -> Dict[str, torch.Tensor]:
         """The model state dict of stage ``name`` in the store (on the CPU)."""
@@ -505,12 +654,25 @@ class Trainer:
         if self.on_the_fly and "synth_generator" not in tree:
             raise ValueError(f"checkpoint {best[0]!r} holds no synthesis generator: it was not saved by an "
                              "on-the-fly run, so this one cannot continue its batches")
+        ranks = tree.get("data_parallel")
+        saved_world = ranks["world_size"] if ranks else 1
+        if saved_world != self.world_size:
+            raise ValueError(f"checkpoint {best[0]!r} was written by {saved_world} data-parallel ranks; resume it "
+                             f"with the same world size, not {self.world_size} (each rank's batches continue from "
+                             "its own generators)")
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
-        self.sample_generator.set_state(tree["sample_generator"])
         self.jitter_generator.set_state(tree["jitter_generator"])
-        if self.on_the_fly:
-            self.synth_generator.set_state(tree["synth_generator"])
+        if self.dp is not None and ranks:
+            # a row of its own storage: set_state reads a state from the start of the storage
+            self.sample_generator.set_state(ranks["sample_generators"][self.dp.rank].clone())
+            self.shared_sample_generator.set_state(ranks["shared_sample_generator"])
+            if self.on_the_fly:
+                self.synth_generator.set_state(ranks["synth_generators"][self.dp.rank].clone())
+        else:
+            self.sample_generator.set_state(tree["sample_generator"])
+            if self.on_the_fly:
+                self.synth_generator.set_state(tree["synth_generator"])
         self.step_count = int(tree["step"])
         return self.step_count
 

@@ -14,9 +14,11 @@ train_location.py:38 reads the composite for frozen latents), and the joint
 stage's bank-pretrain and exact-polish recipe (:func:`fit_joint_recipe`).
 
 ``compute_dtype`` goes to every stage's task, the joint stage's included
-(JAX :211, :271, :416). Not ported here: the mesh and ``sequence_axis`` (one
-device) and ``vq_backend`` (a CUDA tensor always runs the port's kernel, a CPU
-tensor its plain version).
+(JAX :211, :271, :416). ``data_parallel`` is the data axis of the JAX
+``mesh`` (:201-232): every stage's trainer trains its rank's share of each
+batch, and rank 0 alone writes the store. Not ported here: the model and
+sequence axes and ``sequence_axis`` (the next slice) and ``vq_backend`` (a
+CUDA tensor always runs the port's kernel, a CPU tensor its plain version).
 """
 
 from __future__ import annotations
@@ -185,6 +187,7 @@ def run_pipeline(
     joint_bank_updates: Optional[int] = None,
     joint_exact_synth_kwargs: Optional[Dict] = None,
     joint_polish_bank_prob: float = 0.0,
+    data_parallel=None,
     **trainer_kwargs,
 ) -> Dict[str, Tuple[Dict[str, torch.Tensor], Optional[TrainHistory]]]:
     """Run the five stages, and the joint stage with ``joint_location``;
@@ -214,7 +217,12 @@ def run_pipeline(
     location stage reads the quantized RIR latents (``input_mode=
     "quantized"``), and the VQ quantizes channels-last D-vectors
     (``compat_vq_flatten=False``). Explicit keyword arguments override the
-    preset field by field."""
+    preset field by field.
+
+    ``data_parallel`` (a :class:`..parallel.DataParallel` handle, every rank
+    calling with the same arguments and the whole sets) trains every stage
+    data-parallel (``Trainer(data_parallel=...)``); rank 0 alone writes the
+    store and prints, and every rank returns the same state dicts."""
     if preset not in ("compat", "fixed"):
         raise ValueError(f"unknown preset {preset!r}")
     fixed = preset == "fixed"
@@ -227,6 +235,9 @@ def run_pipeline(
     location_target_mode = location_target_mode or "normalized_angle"
     compat_vq_flatten = compat_vq_flatten if compat_vq_flatten is not None else not fixed
 
+    if data_parallel is not None:
+        trainer_kwargs["data_parallel"] = data_parallel
+    lead = data_parallel is None or data_parallel.rank == 0
     updates = updates or {}
     results: Dict[str, Tuple[Dict[str, torch.Tensor], Optional[TrainHistory]]] = {}
     kw: Dict[str, Any] = dict(config=config, width_scale=width_scale, compat_vq_flatten=compat_vq_flatten,
@@ -260,7 +271,8 @@ def run_pipeline(
                 "or point --store-dir at a fresh store."
             )
         params = store.load_stage(name)["model"]
-        print(f"[pipeline] stage {name!r} complete in store — skipping", flush=True)
+        if lead:
+            print(f"[pipeline] stage {name!r} complete in store — skipping", flush=True)
         return params
 
     def stage(index: int, task, initial=None, composite_params=None):

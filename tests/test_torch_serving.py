@@ -170,12 +170,18 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """Neither the port's package nor chip_smoke.py imports jax, flax or the
-    JAX package, by any import form."""
+    """Neither the port's package (parallel/, eval/latents.py,
+    eval/torch_import.py and cli/echoe_transfer.py among it) nor chip_smoke.py
+    nor bench_gpu.py imports jax, flax, the JAX package or bench.py, by any
+    import form."""
     sources = sorted((REPO / "src" / "acoustic_locating_vq_vae_torch").rglob("*.py"))
-    sources.append(REPO / "chip_smoke.py")
+    sources += [REPO / "chip_smoke.py", REPO / "bench_gpu.py"]
     assert len(sources) > 10
-    banned = {"jax", "jaxlib", "flax", "acoustic_locating_vq_vae_tpu"}
+    names = {p.relative_to(REPO).as_posix() for p in sources}
+    for new in ("parallel/__init__.py", "parallel/mesh.py", "parallel/dp_step.py", "eval/latents.py",
+                "eval/torch_import.py", "cli/echoe_transfer.py"):
+        assert f"src/acoustic_locating_vq_vae_torch/{new}" in names, new
+    banned = {"jax", "jaxlib", "flax", "acoustic_locating_vq_vae_tpu", "bench"}
     for path in sources:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
