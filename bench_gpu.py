@@ -156,7 +156,7 @@ def main(argv=None) -> dict:
         "metric": "echoed_speech_train_frames_per_sec_per_card",
         "value": round(frames(dt_cached), 1),
         "unit": "frames/s",
-        "vs_baseline": round(frames(dt_cached) / REFERENCE_CPU_FRAMES_PER_SEC, 2),
+        "vs_baseline": round(frames(dt_cached) / REFERENCE_CPU_FRAMES_PER_SEC, 4),
         "baseline_source": BASELINE_SOURCE,
         "card": card_name(device),
         "batch": args.batch,
@@ -166,7 +166,7 @@ def main(argv=None) -> dict:
         "fp32_peak_share": round(tflops(True) / dt_cached / H100_FP32_PEAK_TFLOPS, 4),
         "cached_step_ms": round(dt_cached * 1e3, 4),
         "uncached_frames_per_sec": round(frames(dt_full), 1),
-        "uncached_vs_baseline": round(frames(dt_full) / REFERENCE_CPU_FRAMES_PER_SEC, 2),
+        "uncached_vs_baseline": round(frames(dt_full) / REFERENCE_CPU_FRAMES_PER_SEC, 4),
         "uncached_step_ms": round(dt_full * 1e3, 4),
         "uncached_model_tflops_per_step": round(tflops(False), 6),
         "uncached_fp32_peak_share": round(tflops(False) / dt_full / H100_FP32_PEAK_TFLOPS, 4),

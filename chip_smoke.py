@@ -8,6 +8,7 @@
     python3 chip_smoke.py --otf       # phases 1 and 12 only (--full-bank: run K's whole 1024-angle bank)
     python3 chip_smoke.py --deploy    # phases 1 and 14 only
     python3 chip_smoke.py --data-parallel  # phases 1 and 15, then the kernels' checks and timings
+    python3 chip_smoke.py --mesh      # phases 1, 2 and 16, then the accumulation kernel's check
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -141,7 +142,7 @@ nothing of JAX. Phases, one line each (more for detail):
    NCCL at world size 1 (joined over a FileStore, no torchrun): the speech
    stage (gradient and EMA codebook), the RIR stage and the uncached echoed
    stage at full width and their own batch size, three steps on one seeded
-   batch through Trainer(data_parallel=...) bitwise equal to the plain trainer
+   batch through Trainer(mesh=...) bitwise equal to the plain trainer
    (metrics, weights, codebook, EMA buffers, Adam), with the kernels' launches
    counted and seen in a profile, the step time beside the plain trainer's and
    the all-reduce's share of the card's time; (b) two ranks on the one card
@@ -154,6 +155,22 @@ nothing of JAX. Phases, one line each (more for detail):
    and without it at once, phase 10's configuration with two updates a stage,
    every final bitwise equal; bench_gpu.py once; collect_encodings and the
    linear probe on phase 14's composite.
+
+16. sequence and tensor sharding (``mesh_phase``): two ranks of this script
+   on the one card over gloo (CUDA tensors) against the single-process steps
+   on the same weights and batch, at full width, B = 16: (a) seq = 2, the
+   speech step (gradient and EMA codebook) and the echoed step (its speech
+   branch's codes too), halos
+   exchanged between the ranks (loss, gradients, codes under the tie rule, EMA
+   counts and sums, the ranks' codebooks bitwise equal); (b) seq = 2 at 4,000
+   frames, the speech model's forward; (c) model = 2, the speech step and the
+   frozen location step with fc_1 and its Adam moments split (half a rank,
+   the bytes a rank holds); (e) the pipeline CLI under torchrun
+   --nproc-per-node 2 with --mesh-seq 2 --sequence-parallel and with
+   --mesh-model 2 --model-parallel, exit 0 and --resume; the launches of each
+   sub-run from the wrappers' counts (set to 0 before, read after), the
+   profile's recorded VQ launches held to those counts, and vq_nearest and the
+   accumulation timed at the shapes the shards run.
 
 Phase 2 also holds the registered operator (``torch.ops.acoustic_locating_vq_vae_torch.vq_nearest``,
 through which the main path reaches the kernel) equal to the wrapper, and
@@ -203,6 +220,8 @@ DEVICE = "cuda"
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TIE_RTOL = 1e-6  # code mismatches allowed only where the scores tie to this
+SCORE_RTOL = 1e-6  # the kernel's winning score against the plain version's score of the same code
+PROFILE_WARMUP = 1  # calls a profile traces before the recorded ones (device_breakdown)
 MAX_MISMATCH_SHARE = 1e-3
 ATOL = 1e-4
 SERVE_B = 64
@@ -267,6 +286,7 @@ OTF_NOISE = {"snr_range": (0.0, 30.0), "snr_clean_prob": 0.25}
 OTF_GRID = 8  # T60s and radii of run K's bank, np.linspace over the ranges
 OTF_SEED, OTF_LABEL_B = 12, 16
 OTF_WIDTH = 1.0  # width_scale of phase 12's stages
+OTF_TIMED = 6  # phase 12's timed steps a stage (cut from 10 to fit the script's time)
 OTF_CONFIG = None  # None: the dataset's full geometry (201 x 500, 6400-tap RIRs)
 OTF_CLI_EXTRA = ()  # flags added to every CLI run of phase 12
 # the recipe through the CLI: RECIPE_UPDATES a stage, the joint stage's first RECIPE_BANK from a small bank
@@ -296,6 +316,14 @@ DP_SUMS_RTOL = 1e-5  # phase 15 (b)'s EMA sums and codebook, distance over their
 ADAM_EPS = 1e-8  # torch.optim.Adam's eps, which the trainer keeps (optax.adam's)
 DP_CLI_UPDATES = 2  # phase 15 (c)'s updates a stage
 DP_LATENT_ROWS = 64
+MESH = "--mesh"  # `python3 chip_smoke.py --mesh`: phases 1, 2 and 16, then the kernels' checks and timings
+MESH_RANK = "--mesh-rank"  # one rank of phase 16, started by the phase itself
+MESH_ROOT = PIPE_ROOT / "mesh"
+MESH_SEED = 160
+MESH_B = 16  # phase 16's batch
+MESH_TIMED = 3  # phase 16's timed steps, two ranks over gloo on one card (a check's cost, not a speed figure)
+MESH_LONG, MESH_LONG_B = 4000, 2  # phase 16 (b): frames and rows of the long-sequence forward
+MESH_CLI_WIDTH = "0.25"  # phase 16 (e)'s width: the split layers' widths (256) at the smoke geometry
 OP_TARGET = f"{PKG}.vq_nearest.default"  # the registered VQ operator as an exported graph names it
 # the JSON keys each deploy CLI prints, the JAX package's scripts' own (tests/test_torch_deploy_cli.py checks
 # them against those scripts); the port's latency bench adds the device's name
@@ -469,19 +497,31 @@ def serve_latency_ms(serve, inputs) -> float:
 def device_breakdown(serve, inputs, top: int = 6):
     """Kernel time by name over serve calls (torch.profiler), and the host
     clock of the profiled window. Returns (wall_us, busy_us, top kernels as
-    (name, launches, device_us)); busy_us is 0 if the profiler saw no device."""
+    (name, launches, device_us)); busy_us is 0 if the profiler saw no device.
+
+    The calls are recorded in the active window of a profiler schedule that
+    first runs PROFILE_WARMUP calls of its own traced but not recorded: the
+    kernels of a trace's first moments can go unrecorded (phase 15 (a) of an
+    earlier run saw 2 of 3 VQ launches with the calls at the window's start),
+    and phase 16 holds the recorded launches to the wrappers' counts."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     serve(inputs[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    plan = schedule(wait=0, warmup=PROFILE_WARMUP, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan) as prof:
+        for _ in range(PROFILE_WARMUP):
+            serve(inputs[0])
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         for x in inputs:
             serve(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     # a user annotation (Optimizer.step#Adam.step) carries the device time of the kernels under it: leave
     # it out, as torch's own tables do, or those kernels count twice
     on_card = [
@@ -525,7 +565,7 @@ def time_nearest(ph: int, n: int, d: int, k: int, gen, card: str) -> dict:
 
     x = torch.randn(n, d, generator=gen, device=gen.device)
     cb = torch.randn(k, d, generator=gen, device=gen.device)
-    e2 = (cb * cb).sum(1)
+    e2 = vq.code_norms(cb)
     with full_fp32():
         kern = both_ms(lambda: nearest_indices_cuda(x, cb, e2))
         plain = both_ms(lambda: vq.nearest_indices(x, cb, e2))
@@ -627,7 +667,7 @@ def time_serving_kernels(dev, card: str) -> None:
 def op_dispatch(dev, card: str, serve_ms: float) -> None:
     """Phase 4: what the registered operator adds to vq_nearest at the B = 8 serving shape: the enqueue time
     of ``vq.vq_nearest`` (the operator, which computes the row norms and calls the wrapper) against the
-    wrapper called with the same row-norm sum, in turns (wrapper, operator, operator, wrapper), and the
+    wrapper called with the same row norms (``vq.code_norms``), in turns (wrapper, operator, operator, wrapper), and the
     difference as a share of the joint localizer's B = 8 serve latency."""
     import torch
     from acoustic_locating_vq_vae_torch.ops import vq
@@ -636,12 +676,12 @@ def op_dispatch(dev, card: str, serve_ms: float) -> None:
     gen = torch.Generator(device=dev).manual_seed(41)
     x = torch.randn(8 * 201, 64, generator=gen, device=dev)
     cb = torch.randn(1024, 64, generator=gen, device=dev)
-    wrapper = lambda: nearest_indices_cuda(x, cb, torch.sum(cb * cb, dim=1))
+    wrapper = lambda: nearest_indices_cuda(x, cb, vq.code_norms(cb))
     op = lambda: vq.vq_nearest(x, cb)
     w1, o1, o2, w2 = (event_ms(f) for f in (wrapper, op, op, wrapper))
     cost = (o1 + o2 - w1 - w2) / 2
     phase(4, f"the registered operator at N=1,608: enqueue {o1:.5f} / {o2:.5f} ms, the wrapper {w1:.5f} / "
-             f"{w2:.5f} ms with the same row-norm sum; dispatch cost {cost * 1e3:.2f} us, "
+             f"{w2:.5f} ms with the same row norms; dispatch cost {cost * 1e3:.2f} us, "
              f"{cost / serve_ms:.2%} of the joint B=8 serve latency {serve_ms:.4f} ms"
              + (" (above 5 %)" if cost > 0.05 * serve_ms else "") + f" ({card})")
 
@@ -676,33 +716,89 @@ def check_nearest(vq, nearest_cuda, dev) -> float:
     (split codebook, K below and off a code tile, unaligned D, D above the
     resident x tile), and exactly where the answer is known: duplicated
     codebook rows, +-0.0 scores, NaN rows, all ties; two launches equal.
-    Returns the largest float64 score gap on rows that differ."""
+    (d): the kernel's winning score against the plain version's score of the
+    same code (SCORE_RTOL relative), and the codebook split into 2 and 4 row
+    blocks, each block's winners (score, global id) merged by score then id
+    (``vq.merge_nearest``, the model axis's merge), bitwise the unsplit
+    kernel's ids and scores at every shape above and on adversarial near
+    ties: every code duplicated in another block, +-0.0 scores across blocks,
+    pairs of codes 1e-7 to 1e-5 apart in different blocks. Returns the largest
+    float64 score gap on rows that differ."""
     import torch
     from acoustic_locating_vq_vae_torch.eval import full_fp32
 
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
     report = []
+    merges = 0
+    score_err = 0.0
+
+    def merged(x, cb, shards, e2=None):
+        """The split codebook's merged winners: the kernel on each block with the given row norms' block, or
+        (``e2`` None) the scored operator on each block, which takes each block's own ``vq.code_norms``."""
+        block = cb.shape[0] // shards
+        scores, ids = [], []
+        for s in range(shards):
+            part = cb[s * block:(s + 1) * block].contiguous()
+            if e2 is None:
+                i, sc = vq.vq_nearest_scored(x, part)
+            else:
+                i, sc = nearest_cuda(x, part, e2[s * block:(s + 1) * block].contiguous())
+            scores.append(sc)
+            ids.append(i.long() + s * block)
+        return vq.merge_nearest(torch.stack(scores), torch.stack(ids))
+
+    def check_merges(label, x, cb, ids, scores, e2=None):
+        """Ids and scores of the merged blocks bitwise the unsplit ones: the kernel on each block with the
+        unsplit row norms' block against the unsplit kernel (``ids``, ``scores``; a code's score does not
+        depend on the split), and the model axis's path, the scored operator on each block with the block's
+        own row norms, against the operator on the whole codebook (``vq.code_norms`` gives a code the same
+        norm in any codebook, K = 300 and 100 included)."""
+        nonlocal merges
+        norms = vq.code_norms(cb) if e2 is None else e2
+        whole = vq.vq_nearest_scored(x, cb)
+        for shards in (2, 4):
+            if cb.shape[0] % shards:
+                continue
+            for path, given, (want_i, want_s) in (("kernel", norms, (ids, scores)), ("operator", None, whole)):
+                got_s, got_i = merged(x, cb, shards, given)
+                if not (torch.equal(got_i.to(torch.int32), want_i) and torch.equal(got_s, want_s)):
+                    bad = int((got_i.to(torch.int32) != want_i).sum())
+                    raise AssertionError(f"(d) {label}: {shards} blocks merged ({path}) differ from the unsplit "
+                                         f"{path} on {bad} ids, scores equal {torch.equal(got_s, want_s)}")
+            merges += 1
+
     with full_fp32():
         for n, d, k in [(N_SERVE, 64, 1024), (8 * 201, 64, 1024), (SPEECH_N, SPEECH_D, SPEECH_K),
                         (RIR_N, 64, 1024), (ECHOED_N, SPEECH_D, SPEECH_K), (LOCATION_N, 64, 1024), (100, 4, 16), (513, 128, 100), (8 * 201, 64, 100), (8 * 201, 64, 16),
                         (1000, 129, 300), (300, 6, 1024), (2000, 256, 520)]:
             x = torch.randn(n, d, generator=gen, device=dev)
             cb = torch.randn(k, d, generator=gen, device=dev)
-            e2 = (cb * cb).sum(1)
-            first = nearest_cuda(x, cb, e2)
-            if not torch.equal(first, nearest_cuda(x, cb, e2)):
+            e2 = vq.code_norms(cb)
+            first, score = nearest_cuda(x, cb, e2)
+            again = nearest_cuda(x, cb, e2)
+            if not (torch.equal(first, again[0]) and torch.equal(score, again[1])):
                 raise AssertionError(f"kernel ({n}, {d}, {k}): two launches differ")
             if not torch.equal(vq.vq_nearest(x, cb), first):
                 raise AssertionError(f"({n}, {d}, {k}): the registered operator differs from the kernel's wrapper")
+            op_ids, op_scores = vq.vq_nearest_scored(x, cb)
+            if not (torch.equal(op_ids, first) and torch.equal(op_scores, score)):
+                raise AssertionError(f"({n}, {d}, {k}): the scored operator differs from the kernel's wrapper")
             want = vq.nearest_indices(x, cb, e2)
+            # the plain version's score of the code the kernel picked
+            plain_score = e2[first.long()] - 2.0 * (x * cb[first.long()]).sum(1)
+            err = float(((score - plain_score).abs() / (e2[first.long()].abs() + 2.0 * (x * cb[first.long()]).sum(1).abs())).max())
+            if err > SCORE_RTOL:
+                raise AssertionError(f"(d) ({n}, {d}, {k}): the kernel's score lies {err} from the plain version's")
+            score_err = max(score_err, err)
+            check_merges(f"({n}, {d}, {k})", x, cb, first, score)
             torch.cuda.synchronize()
             mism, gap = check_codes(x, cb, first.long(), want, f"kernel ({n}, {d}, {k})")
             max_err = max(max_err, gap)
             report.append(f"({n},{d},{k}): {mism} tie rows differ")
 
         def exact(label, x, cb, want):
-            got = nearest_cuda(x, cb, (cb * cb).sum(1)).cpu()
+            got = nearest_cuda(x, cb, vq.code_norms(cb))[0].cpu()
             if not torch.equal(got, want.to(torch.int32).cpu()):
                 bad = torch.nonzero(got != want.to(torch.int32).cpu()).flatten()
                 raise AssertionError(f"{label}: {bad.numel()} rows wrong, first {bad[:5].tolist()} got "
@@ -714,34 +810,53 @@ def check_nearest(vq, nearest_cuda, dev) -> float:
             x = torch.randn(n, 64, generator=gen, device=dev)
             half = torch.randn(512, 64, generator=gen, device=dev)
             cb = torch.cat([half, half])
-            want = vq.nearest_indices(x, half, (half * half).sum(1))
-            got = nearest_cuda(x, cb, (cb * cb).sum(1)).long()
+            want = vq.nearest_indices(x, half, vq.code_norms(half))
+            got, score = nearest_cuda(x, cb, vq.code_norms(cb))
             if bool((got >= 512).any()):
                 raise AssertionError(f"duplicated codebook rows at N={n}: {int((got >= 512).sum())} rows took the copy")
-            check_codes(x, half, got, want, f"duplicated codebook rows at N={n}")
+            check_codes(x, half, got.long(), want, f"duplicated codebook rows at N={n}")
+            # (d) the copies in other blocks: two blocks hold the same codes, four blocks pairs of them
+            check_merges(f"duplicated codes across blocks at N={n}", x, cb, got, score)
         # a zero row scores +0.0 on code 3 (a zero row) and -0.0 on code 700
         # (e2 = -0.0 given by hand); they tie, so the lower index wins
         cb = torch.randn(1024, 64, generator=gen, device=dev) + 3.0
         cb[3] = 0.0
         cb[700] = 0.0
-        e2 = (cb * cb).sum(1)
+        e2 = vq.code_norms(cb)
         e2[700] = -0.0
         x = torch.zeros(1608, 64, device=dev)
-        got = nearest_cuda(x, cb, e2).cpu()
+        got = nearest_cuda(x, cb, e2)[0].cpu()
         if not torch.equal(got, torch.full((1608,), 3, dtype=torch.int32)):
             raise AssertionError(f"+0.0 against -0.0 must go to the lower code 3, got {got.unique().tolist()}")
+        # (d) the same across blocks (code 3 in the first block, code 700 in the second or third): +0.0 and -0.0
+        # winners merged, and the lower id kept
+        ids, score = nearest_cuda(x, cb, e2)
+        check_merges("+-0.0 scores across blocks", x, cb, ids, score, e2)
+        # (d) near ties across blocks: code i and code K-1-i nearly equal, the rows nearest to them
+        cb = torch.randn(1024, 64, generator=gen, device=dev)
+        for i, eps in enumerate((1e-7, 3e-7, 1e-6, 3e-6, 1e-5)):
+            cb[1023 - i] = cb[i] * (1 + eps)
+        x = torch.cat([cb[:5].repeat(200, 1) * (1 + 1e-3 * torch.randn(1000, 1, generator=gen, device=dev)),
+                       torch.randn(608, 64, generator=gen, device=dev)])
+        ids, score = nearest_cuda(x, cb, vq.code_norms(cb))
+        check_merges("near ties 1e-7 to 1e-5 apart across blocks", x, cb, ids, score)
         x = torch.randn(300, 64, generator=gen, device=dev)
         x[7] = float("nan")
         cb = torch.randn(1024, 64, generator=gen, device=dev)
-        got = nearest_cuda(x, cb, (cb * cb).sum(1))
-        if int(got[7]) != 0:
-            raise AssertionError(f"a row of NaN must take code 0, got {int(got[7])}")
+        got, score = nearest_cuda(x, cb, vq.code_norms(cb))
+        if int(got[7]) != 0 or float(score[7]) != float("inf"):
+            raise AssertionError(f"a row of NaN must take code 0 with score +inf, got {int(got[7])}, {float(score[7])}")
         exact("all ties", torch.ones(8, 4, device=dev), torch.ones(6, 4, device=dev), torch.zeros(8))
         exact("all ties across slices", torch.ones(1608, 64, device=dev), torch.ones(1024, 64, device=dev),
               torch.zeros(1608))
-    phase(2, f"kernel == plain, two launches equal, the registered operator torch.ops.{vq.VQ_NEAREST_OP.replace('::', '.')} "
-             f"== the wrapper, at {'; '.join(report)}; duplicated codebook rows, +-0.0 scores "
-             f"and all ties -> the lower index; a NaN row -> code 0; max float64 score gap on differing rows {max_err}")
+    phase(2, f"kernel == plain, two launches equal, the registered operators torch.ops.{vq.VQ_NEAREST_OP.replace('::', '.')} "
+             f"and {vq.VQ_NEAREST_SCORED_OP.split('::')[1]} == the wrapper, at {'; '.join(report)}; duplicated codebook rows, +-0.0 scores "
+             f"and all ties -> the lower index; a NaN row -> code 0, score +inf; max float64 score gap on differing rows {max_err}")
+    phase(2, f"(d) the score output: largest distance from the plain version's score of the same code {score_err:.3g} "
+             f"of |e2| + |2 x.e| (limit {SCORE_RTOL}); {merges} splits into 2 and 4 row blocks merged by score then "
+             "id bitwise the unsplit kernel's ids and scores with the unsplit row norms, and the scored operator's on "
+             "each block with the block's own row norms bitwise the operator's on the whole codebook, near ties, "
+             "copies and +-0.0 across blocks included")
     return max_err
 
 
@@ -1983,24 +2098,24 @@ def otf_timings(dev, cfg, bank, counters, card: str) -> None:
         start_stage(tr, composite, torch.Generator().manual_seed(9))
         resident = data.make_dataset(torch.Generator(dev).manual_seed(9), 2 * task.batch_size, cfg, device=dev,
                                      **exact)
-        res_ms, _ = step_times_ms(tr, resident)
+        res_ms, _ = step_times_ms(tr, resident, steps=OTF_TIMED, warmup=2)
         del resident
         for c in counters:
             c.launches = 0
         with count_by_shape():
-            otf_ms, times = sync_times_ms(lambda: tr.step(tr.otf_batch()), steps=10, warmup=3)
+            otf_ms, times = sync_times_ms(lambda: tr.step(tr.otf_batch()), steps=OTF_TIMED, warmup=2)
         torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
-        if launches["nearest_indices_cuda"] < 13:
+        if launches["nearest_indices_cuda"] < OTF_TIMED + 2:
             raise AssertionError(f"{label}: the on-the-fly steps launched {launches}")
-        synth_ms, _ = sync_times_ms(tr.otf_batch, steps=10, warmup=1)
+        synth_ms, _ = sync_times_ms(tr.otf_batch, steps=OTF_TIMED, warmup=1)
         wall, busy, synth_card = otf_profile(tr)
         card_share = "not attributed" if synth_card is None else f"{synth_card:.3f} ms, {synth_card / busy:.1%}"
         lines.append(f"{label} B={task.batch_size}: resident {res_ms:.3f} ms, on the fly {otf_ms:.3f} ms (min "
                      f"{min(times):.3f}, max {max(times):.3f}; {otf_ms / res_ms:.2f}x), synthesis alone "
                      f"{synth_ms:.3f} ms ({synth_ms / otf_ms:.1%} of the step by the host clock); profiled: "
                      f"{wall:.3f} ms a step, card busy {busy:.3f} ms ({busy / wall:.1%}), synthesis {card_share}; "
-                     f"launches over 13 steps {launches}")
+                     f"launches over {OTF_TIMED + 2} steps {launches}")
         del tr
         torch.cuda.empty_cache()
     phase(12, f"train steps at full width, resident against on the fly ({card}): " + " | ".join(lines))
@@ -2183,6 +2298,7 @@ BF16_STAGES = (("speech", "speech", False, {}), ("speech EMA", "speech", False, 
                ("echoed", "echoed", False, {}), ("echoed cached", "echoed", True, {}), ("finetune", "finetune", False, {}),
                ("location", "location", False, {}), ("joint", "location_joint", False, {}))
 BF16_SEED = 130
+BF16_TIMED = 6  # phase 13 (b)'s timed steps a stage, dtype and pin (cut from 10 to fit the script's time)
 # The card's bf16 gradient of a step against the CPU port's bf16 step on the same weights, batch, jitter decisions
 # and latents, ||card - CPU|| / ||CPU||, must stay within the CPU bf16 step's own distance from the same step in
 # float64 (BF16_FRACTION of it): the bound comes from the CPU, never from the card. The CPU computes XLA-CPU's
@@ -2440,7 +2556,7 @@ def kernel_shares(top, busy_us: float) -> dict:
 
 def bf16_timings(composite, dev, counters, card: str) -> dict:
     """Phase 13 (b): every stage's train step at its own batch size, FP32 and bf16, each with and without the
-    deterministic pin (medians of 10 after 3 warm-ups); the bf16 step's launches, loss, parameters and codes (tie
+    deterministic pin (medians of BF16_TIMED after 2 warm-ups); the bf16 step's launches, loss, parameters and codes (tie
     rule) at that batch size; the TF32 speech yardstick; profiles of the speech and echoed bf16 steps. Returns
     {label: {(dtype, pinned): ms}}."""
     import dataclasses
@@ -2466,11 +2582,11 @@ def bf16_timings(composite, dev, counters, card: str) -> dict:
             for c in counters:
                 c.launches = 0
             with count_by_shape():
-                row[(dtype, True)] = step_times_ms(tr, resident, cache)[0]
+                row[(dtype, True)] = step_times_ms(tr, resident, cache, steps=BF16_TIMED, warmup=2)[0]
             torch.cuda.synchronize()
             launches = {c.__name__: c.launches for c in counters}
             with unpinned():
-                row[(dtype, False)] = step_times_ms(tr, resident, cache)[0]
+                row[(dtype, False)] = step_times_ms(tr, resident, cache, steps=BF16_TIMED, warmup=2)[0]
             if dtype == "bfloat16":
                 need = [] if cached else ["nearest_indices_cuda"]
                 if stage in ("speech", "rir"):
@@ -2500,9 +2616,9 @@ def bf16_timings(composite, dev, counters, card: str) -> dict:
             torch.cuda.empty_cache()
         times[label] = row
         f32, bf = row[("float32", True)], row[("bfloat16", True)]
-        phase(13, f"(b) {label} train step at B={b}, full width, median of 10: FP32 {f32:.4f} ms, bf16 {bf:.4f} ms "
+        phase(13, f"(b) {label} train step at B={b}, full width, median of {BF16_TIMED}: FP32 {f32:.4f} ms, bf16 {bf:.4f} ms "
                   f"({f32 / bf:.2f}x); without the deterministic pin FP32 {row[('float32', False)]:.4f}, bf16 "
-                  f"{row[('bfloat16', False)]:.4f} ms; bf16 launches over its 13 pinned steps {row['launches']}; "
+                  f"{row[('bfloat16', False)]:.4f} ms; bf16 launches over its {BF16_TIMED + 2} pinned steps {row['launches']}; "
                   f"bf16 step at B={b}: finite float32 loss, float32 parameters, codes under the tie rule"
                   + (f"; TF32 yardstick {row['tf32']:.4f} ms" if "tf32" in row else "") + f" ({card})")
     return times
@@ -2943,7 +3059,7 @@ def nccl_share(step, batches) -> tuple:
 def dp_world_one(dev, counters, card: str) -> None:
     """Phase 15 (a): NCCL at world size 1, joined without torchrun over a FileStore: the speech stage
     (gradient and EMA codebook), the RIR stage and the uncached echoed stage at full width and their own
-    batch size, DP_STEPS steps each on one seeded batch through Trainer(data_parallel=dp), bitwise equal to
+    batch size, DP_STEPS steps each on one seeded batch through Trainer(mesh=dp), bitwise equal to
     the plain Trainer on the same batch (every metric, the weights, the codebook, the EMA buffers and Adam's
     state); the kernels' launches; the step time, median of 10, beside the plain trainer's; the all-reduce's
     share of the card's time in a profile."""
@@ -2965,7 +3081,7 @@ def dp_world_one(dev, counters, card: str) -> None:
             batch = stage_batch(task.batch_size, torch.Generator(device=dev).manual_seed(DP_SEED + 1), dev)
             trainers = {}
             for name, handle in (("plain", None), ("dp", dp)):
-                tr = Trainer(task, device=dev, seed=DP_SEED, verbose=False, data_parallel=handle)
+                tr = Trainer(task, device=dev, seed=DP_SEED, verbose=False, mesh=handle)
                 if label == "echoed":
                     tr.model.load_state_dict(composite)
                 trainers[name] = tr
@@ -3025,7 +3141,7 @@ def dp_rank_main(argv) -> int:
     batch = shard_batch(SampleBatch(**inputs["batch"]), dp).map(lambda a: a.to(dp.device))
     out = {}
     for label, ema in (("speech", False), ("speech EMA", True)):
-        tr = Trainer(SpeechVQVAETask(vq_ema=ema), seed=DP_SEED, verbose=False, data_parallel=dp)
+        tr = Trainer(SpeechVQVAETask(vq_ema=ema), seed=DP_SEED, verbose=False, mesh=dp)
         tr.model.load_state_dict(inputs[label])
         launches = vq.nearest_indices_cuda.launches
         res = {"codes": [], "metrics": [], "state": []}
@@ -3297,7 +3413,7 @@ def dp_pipeline_and_tools(dev, counters, card: str) -> None:
 
 
 def data_parallel_phase(dev, counters, card: str) -> None:
-    """Phase 15: data parallelism (``parallel/``, ``Trainer(data_parallel=...)``, the pipeline under torchrun)
+    """Phase 15: data parallelism (``parallel/``, ``Trainer(mesh=...)``, the pipeline under torchrun)
     and the rest of eval/ on the card; (a), (b), (c) above."""
     t_phase = time.perf_counter()
     shutil.rmtree(DP_ROOT, ignore_errors=True)
@@ -3307,6 +3423,426 @@ def data_parallel_phase(dev, counters, card: str) -> None:
     dp_pipeline_and_tools(dev, counters, card)
     shutil.rmtree(DP_ROOT, ignore_errors=True)
     phase(15, f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# Phase 16: sequence and tensor sharding (the seq and model axes of parallel/) on the one card. Two ranks of this
+# script over gloo (NCCL refuses two ranks on one device), argv: rank, port, root.
+def mesh_rank_main(argv) -> int:
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO / "src"))
+    from acoustic_locating_vq_vae_torch.data import SampleBatch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.models.conv_vqvae import sequence_sharding
+    from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
+    from acoustic_locating_vq_vae_torch.parallel import init_data_parallel, make_mesh, sequence_parallel_apply
+    from acoustic_locating_vq_vae_torch.parallel.sequence import HALO_PATHS
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    world = init_data_parallel(backend="gloo", device="cuda", init_method=f"tcp://localhost:{port}", rank=rank,
+                               world_size=2, local_rank=0)
+    inputs = torch.load(root / "inputs.pt", weights_only=False)
+    dev = world.device
+    batch = SampleBatch(**inputs["batch"]).map(lambda a: a.to(dev))
+    counters = (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda)
+    out = {"halo_paths": {}}
+
+    def counted(fn):
+        """``fn()`` with the wrappers' counts set to 0 before and read after, and its launches by shape."""
+        for c in counters:
+            c.launches = 0
+        SHAPE_LAUNCHES.clear()
+        with count_by_shape():
+            res = fn()
+        torch.cuda.synchronize()
+        res["launches"] = {c.__name__: c.launches for c in counters}
+        res["shapes"] = dict(SHAPE_LAUNCHES)
+        return res
+
+    def local_grads(model):
+        """Each parameter's gradient on the CPU, a split one as this rank's block with where it sits."""
+        grads = {}
+        for name, p in model.named_parameters():
+            if p.grad is not None:
+                shard = getattr(p, "model_shard", None)
+                grads[name] = (p.grad.to("cpu", copy=True), None if shard is None else (shard.dim, shard.lo))
+        return grads
+
+    def step(tr, cached_codes=True, branch=lambda m: m):
+        """One step's metrics, gradients and VQ state, and with ``cached_codes`` the codes of the VQ-VAE
+        ``branch(model)`` on this rank's time shard before it."""
+        res = {}
+        if cached_codes:
+            part = tr._time_window(batch) if tr._seq_sharded else batch
+            with torch.no_grad(), full_fp32(), sequence_sharding(tr.model, tr.dp):
+                res["codes"] = branch(tr.model).get_latent_codes(tr.task.model_inputs(part)[0]).cpu()
+        before = dict(HALO_PATHS)
+        res["metrics"] = {k: v.to("cpu", copy=True) for k, v in tr.step(batch).items()}
+        res["grads"] = local_grads(tr.model)
+        res["state"] = {k: v.to("cpu", copy=True) for k, v in tr.model.state_dict().items() if "_vq." in k}
+        res["halo"] = {k: HALO_PATHS[k] - before.get(k, 0) for k in HALO_PATHS}
+        return res
+
+    # (a) seq = 2: the speech stage (gradient and EMA codebook) and the echoed stage
+    seq = make_mesh(seq=2, world=world)
+    for label, task_kw, weights in (("speech", dict(), "speech"), ("speech EMA", dict(vq_ema=True), "speech EMA")):
+        tr = Trainer(make_stage_task("speech", sequence_axis="seq", **task_kw), seed=MESH_SEED, verbose=False,
+                     mesh=seq)
+        tr.model.load_state_dict(inputs[weights])
+        out[label] = counted(lambda: step(tr))
+        if label == "speech":  # two ranks on one card over gloo: a correctness check's cost, not a speed figure
+            out[label]["step_ms"] = step_times_ms(tr, batch, steps=MESH_TIMED, warmup=1)[0]
+        del tr
+    tr = Trainer(make_stage_task("echoed", sequence_axis="seq"), seed=MESH_SEED, verbose=False, mesh=seq)
+    tr.model.load_state_dict(inputs["composite vectors"])
+    out["echoed"] = counted(lambda: step(tr, branch=lambda m: m.speech_model))
+    del tr
+
+    # (b) seq = 2 at MESH_LONG frames: the speech model's forward pass
+    model = make_stage_task("speech", sequence_axis="seq").build_model().to(dev).eval()
+    model.load_state_dict(inputs["speech"])
+    x = inputs["long"].to(dev)
+
+    def forward():
+        with torch.no_grad(), full_fp32():
+            loss, recon, perp = sequence_parallel_apply(model, x, seq, train=False)
+            per = x.shape[-1] // 2
+            with sequence_sharding(model, seq):
+                codes = model.get_latent_codes(x[..., rank * per:(rank + 1) * per])
+        return {"loss": loss.cpu(), "recon": recon.cpu(), "perplexity": perp.cpu(), "codes": codes.cpu()}
+
+    out["long"] = counted(forward)
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) model = 2: the speech stage and the frozen location stage with the split parameters
+    mp = make_mesh(model=2, world=world)
+    tr = Trainer(make_stage_task("speech", compat_vq_flatten=False), seed=MESH_SEED, verbose=False, mesh=mp,
+                 model_parallel=True)
+    tr.load_state_dict(inputs["speech"])
+    out["mp speech"] = counted(lambda: step(tr, cached_codes=False))
+    out["mp speech"]["step_ms"] = step_times_ms(tr, batch, steps=MESH_TIMED, warmup=1)[0]
+    del tr
+    torch.cuda.empty_cache()
+    tr = Trainer(make_stage_task("location"), seed=MESH_SEED, verbose=False, mesh=mp, model_parallel=True,
+                 composite_params=inputs["composite compat"])
+    res = counted(lambda: step(tr, cached_codes=False))
+    fc_1 = tr.model.fc_1.weight
+    adam = tr.optimizer.state[fc_1]
+    res["fc_1"] = {"local": fc_1.numel(), "adam": adam["exp_avg"].numel() + adam["exp_avg_sq"].numel(),
+                   "shard": (fc_1.model_shard.dim, fc_1.model_shard.lo, fc_1.model_shard.full),
+                   "whole": fc_1.shape[0] * fc_1.model_shard.full}
+    res["bytes"] = {"params": sum(p.numel() * p.element_size() for p in tr.model.parameters()),
+                    "adam": sum(t.numel() * t.element_size() for st in tr.optimizer.state.values()
+                                for t in st.values() if torch.is_tensor(t) and t.dim() > 0),
+                    "allocated": torch.cuda.memory_allocated(dev)}
+    out["mp location"] = res
+    torch.save(out, root / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def block_of(ref, where):
+    """The block of the whole tensor ``ref`` a split parameter's rank holds (``where``: (dim, lo) or None)."""
+    if where is None:
+        return ref
+    dim, lo = where
+    return ref.narrow(dim, lo, ref.shape[dim] // 2)
+
+
+def mesh_compare(label: str, ranks, ref, grad_rtol: float, latent=None, codebook=None, seq: bool = False):
+    """Phase 16's comparison of a two-rank step with the single-process one: the loss within LOSS_RTOL, every
+    gradient (each rank's block of a split one) within ``grad_rtol`` of its max, the codes under the tie rule
+    (the ranks' time shards laid end to end), the perplexity of those codes exact where they are equal. Returns
+    a line."""
+    import torch
+
+    a = ranks[0][label]
+    m, w = a["metrics"], ref["metrics"]
+    if abs(float(m["loss"]) - float(w["loss"])) > LOSS_RTOL * abs(float(w["loss"])):
+        raise AssertionError(f"16 {label}: loss {float(m['loss'])} vs {float(w['loss'])}")
+    worst = 0.0
+    for r in ranks:
+        res = r[label]
+        if set(res["grads"]) != set(ref["grads"]):
+            raise AssertionError(f"16 {label}: gradients of {sorted(set(res['grads']) ^ set(ref['grads']))[:4]}")
+        for k, (g, where) in res["grads"].items():
+            worst = max(worst, max_rel(g, block_of(ref["grads"][k], where)))
+    if worst > grad_rtol:
+        raise AssertionError(f"16 {label}: a gradient lies {worst} of its max from the single process's, limit "
+                             f"{grad_rtol}")
+    line = f"loss {float(m['loss']):.6f} vs {float(w['loss']):.6f}, worst gradient {worst:.3g} of its max"
+    if latent is not None:
+        codes = torch.cat([r[label]["codes"] for r in ranks], dim=-1) if seq else a["codes"]
+        mism, _ = check_codes(latent, codebook, codes.reshape(-1), ref["codes"].reshape(-1), f"16 {label} codes")
+        for key in ("perplexity", "speech_perplexity"):
+            if mism == 0 and key in w and not torch.equal(m[key], w[key]):
+                raise AssertionError(f"16 {label}: {key} {float(m[key])} vs {float(w[key])}")
+        line += f", codes differ on {mism} tie rows"
+    return line
+
+
+MESH_CLI_RUNS = {"seq": ["--mesh-seq", "2", "--sequence-parallel"], "model": ["--mesh-model", "2", "--model-parallel"]}
+
+
+def mesh_cli_start(resume: bool = False) -> dict:
+    """Phase 16 (e): start the pipeline CLI under torchrun --nproc-per-node 2 on the one card (--device cuda:0: the
+    two ranks share it, so ``init_data_parallel`` takes gloo) with --mesh-seq 2 --sequence-parallel and with
+    --mesh-model 2 --model-parallel, at the smoke geometry and width MESH_CLI_WIDTH, two updates a stage, both at
+    once (``resume``: with --resume). Returns {name: (process, log path)}."""
+    root = MESH_ROOT / "cli"
+    root.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
+    procs = {}
+    for name, flags in MESH_CLI_RUNS.items():
+        log = root / f"{name}{'-resume' if resume else ''}.log"
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m",
+                f"{PKG}.cli.run_pipeline", "--smoke", "--device", "cuda:0", "--width-scale",
+                MESH_CLI_WIDTH, "--updates", "2", "--dataset-size", "8", "--val-size", "4", "--store-dir",
+                str(root / name), *flags, *(["--resume"] if resume else [])]
+        procs[name] = (subprocess.Popen(argv, stdout=open(log, "w"), stderr=subprocess.STDOUT, env=env, cwd=REPO), log)
+    return procs
+
+
+@contextlib.contextmanager
+def stopped_on_failure(procs: dict):
+    """While open, a failure kills the processes of ``procs`` (``mesh_cli_start``'s) before it propagates."""
+    try:
+        yield
+    except BaseException:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
+
+
+def mesh_cli_wait(procs: dict, what: str) -> None:
+    try:
+        rcs = {name: p.wait(timeout=600) for name, (p, _) in procs.items()}
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs.values()):
+        raise AssertionError(f"16 (e) CLI {what} exits {rcs}:\n" + "\n".join(
+            log.read_text(encoding="utf-8")[-3000:] for _, log in procs.values()))
+
+
+def mesh_cli_finish(procs: dict, t0: float, card: str) -> None:
+    """Phase 16 (e), after ``mesh_cli_start``: both runs exit 0 with every stage's final; then --resume skips
+    every stage and exits 0."""
+    from acoustic_locating_vq_vae_torch.utils import StageStore
+
+    mesh_cli_wait(procs, "")
+    resumes = mesh_cli_start(resume=True)
+    mesh_cli_wait(resumes, "--resume")
+    for name in MESH_CLI_RUNS:
+        store = StageStore(str(MESH_ROOT / "cli" / name))
+        finals = [t for t, m in store.stages().items() if m["metadata"].get("final")]
+        log = resumes[name][1].read_text(encoding="utf-8")
+        if len(finals) != 5 or log.count("complete in store") != 5:
+            raise AssertionError(f"16 (e) {name}: finals {finals}, resume skipped {log.count('complete in store')}")
+    phase(16, f"(e) the pipeline CLI under torchrun --nproc-per-node 2 (gloo, one card) with --mesh-seq 2 "
+              f"--sequence-parallel and with --mesh-model 2 --model-parallel, width {MESH_CLI_WIDTH}, smoke geometry: "
+              f"both exit 0 with five finals, both --resume runs skip all five stages; {time.perf_counter() - t0:.1f} s "
+              f"from their start, beside (a)-(c) ({card})")
+
+
+def mesh_phase(dev, card: str) -> None:
+    """Phase 16: sequence sharding (the seq axis) and tensor sharding (the model axis) at full width on the one
+    card, two ranks of this script over gloo (CUDA tensors), against the single-process steps on the same weights
+    and batch computed here meanwhile: (a) seq = 2: a speech step (gradient and EMA codebook) and an echoed step
+    (the codes of its speech branch), within phase 15 (b)'s tolerances (loss LOSS_RTOL, gradients GRAD_RTOL of their
+    max, codes under the tie rule, the EMA counts exact where the codes are, the EMA sums DP_SUMS_RTOL); (b) seq = 2
+    at MESH_LONG frames: the speech model's forward pass (loss, perplexity, codes, the reconstruction within
+    LOSS_RTOL of its max where the codes agree); (c) model = 2: a speech step and a location step (the frozen
+    one-hot localizer, fc_1 205,824 x 1,024 split by its input features) against the replicated step, each rank
+    holding half of fc_1 and of its Adam moments; the bytes a rank holds; (d) is phase 2's; (e) the CLI under
+    torchrun (``mesh_cli_start``, ``mesh_cli_finish``), run beside (a)-(c). Every sub-run's launches are the
+    wrappers' counts, set to 0 before and read after, and a profile of the single-process speech step holds the
+    recorded VQ launches to those counts."""
+    import torch
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+    from acoustic_locating_vq_vae_torch.ops.vq_cuda import nearest_indices_cuda
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    root = MESH_ROOT / "ranks"
+    root.mkdir(parents=True)
+    g = torch.Generator().manual_seed(MESH_SEED)
+    batch = stage_batch(MESH_B, g, "cpu")
+    weights = {}
+    for label, kw in (("speech", {}), ("speech EMA", dict(vq_ema=True))):
+        task = make_stage_task("speech", compat_vq_flatten=False, **kw)
+        model = task.build_model(g).to(dev)
+        with torch.no_grad(), full_fp32():
+            latent_codebook_(model, task.model_inputs(make_batch(8, g, "cpu").map(lambda a: a.to(dev)))[0], g)
+        weights[label] = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+    composites = {"composite vectors": composite_weights(make_stage_task("echoed", compat_vq_flatten=False), g),
+                  "composite compat": composite_weights(make_stage_task("echoed"), g)}
+    x_long = torch.empty(MESH_LONG_B, 201, MESH_LONG).exponential_(generator=g)
+    x_long = make_stage_task("speech").model_inputs(batch._replace(speech_spec=x_long))[0]
+    torch.save({"batch": batch._asdict(), **weights, **composites, "long": x_long}, root / "inputs.pt")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
+    logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-u", str(REPO / "chip_smoke.py"), MESH_RANK, str(r), str(port),
+                               str(root)], stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=REPO)
+             for r in range(2)]
+    t_cli, clis = time.perf_counter(), mesh_cli_start()
+    with stopped_on_failure(clis):
+        try:
+            batch_dev = batch.map(lambda a: a.to(dev))
+            ref = {}
+
+            def single(label, task, load, codes=True, branch=lambda m: m):
+                tr = Trainer(task, device=dev, seed=MESH_SEED, verbose=False,
+                             composite_params=composites["composite compat"] if task.name == "location" else None)
+                load(tr)
+                res = {}
+                if codes:  # of the VQ-VAE branch(model), before the step
+                    vqvae = branch(tr.model)
+                    with torch.no_grad(), full_fp32():
+                        x = tr.task.model_inputs(batch_dev)[0]
+                        res["codes"] = vqvae.get_latent_codes(x).cpu()
+                        z = vqvae.pre_vq_latent(x)
+                        res["latent"] = z.transpose(1, 2).reshape(-1, vqvae.embedding_dim).cpu()
+                        res["codebook"] = vqvae._vq._embedding.weight.detach().cpu().clone()
+                res["metrics"] = {k: v.to("cpu", copy=True) for k, v in tr.step(batch_dev).items()}
+                res["grads"] = {k: p.grad.to("cpu", copy=True) for k, p in tr.model.named_parameters()
+                                if p.grad is not None}
+                res["state"] = {k: v.to("cpu", copy=True) for k, v in tr.model.state_dict().items() if "_vq." in k}
+                ref[label] = res
+                return tr
+
+            for label, kw in (("speech", {}), ("speech EMA", dict(vq_ema=True))):
+                tr = single(label, make_stage_task("speech", compat_vq_flatten=False, **kw),
+                            lambda t, w=weights[label]: t.model.load_state_dict(w))
+                if label == "speech":
+                    single_ms = step_times_ms(tr, batch_dev, steps=MESH_TIMED, warmup=1)[0]
+            # the profile's VQ launches against the wrappers' counts, on the single-process speech step, in the
+            # warmed-up window of device_breakdown
+            nearest_indices_cuda.launches = 0
+            _, _, kernels_seen = device_breakdown(lambda b: tr.step(b), [batch_dev] * 3, top=10_000)
+            torch.cuda.synchronize()
+            profiled = sum(c for k, c, _ in kernels_seen if "vq_nearest_kernel" in k)
+            counted_launches = nearest_indices_cuda.launches - PROFILE_WARMUP - 1  # less the warm-up calls
+            del tr
+            single("echoed", make_stage_task("echoed", compat_vq_flatten=False),
+                   lambda t: t.model.load_state_dict(composites["composite vectors"]),
+                   branch=lambda m: m.speech_model)
+            single("location", make_stage_task("location"), lambda t: None, codes=False)
+            model = make_stage_task("speech", compat_vq_flatten=False).build_model().to(dev).eval()
+            model.load_state_dict(weights["speech"])
+            with torch.no_grad(), full_fp32():
+                xl = x_long.to(dev)
+                loss, recon, perp = model(xl, train=False)
+                z = model.pre_vq_latent(xl)
+                ref["long"] = {"loss": loss.cpu(), "recon": recon.cpu(), "perplexity": perp.cpu(),
+                               "codes": model.get_latent_codes(xl).cpu(),
+                               "latent": z.transpose(1, 2).reshape(-1, model.embedding_dim).cpu()}
+            del model
+            torch.cuda.empty_cache()
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(rcs):
+            raise AssertionError("16 ranks exited " + str(rcs) + ":\n" + "\n".join(
+                (root / f"rank{r}.log").read_text(encoding="utf-8")[-3000:] for r in range(2)))
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        if profiled != counted_launches:
+            raise AssertionError(f"16: the profile recorded {profiled} vq_nearest launches, the wrapper counted "
+                                 f"{counted_launches}")
+        phase(16, f"the profile of 3 single-process speech steps in a warmed-up window recorded {profiled} vq_nearest "
+                  f"launches, the wrapper counted {counted_launches}")
+
+        # launches: every sub-run went through the kernels; its launches by shape join the kernels line's counts
+        need = {"speech": ("nearest_indices_cuda", "codebook_grad_cuda"),
+                "speech EMA": ("nearest_indices_cuda", "codebook_stats_cuda"), "echoed": ("nearest_indices_cuda",),
+                "long": ("nearest_indices_cuda",), "mp speech": ("nearest_indices_cuda", "codebook_grad_cuda"),
+                "mp location": ("nearest_indices_cuda",)}
+        for label, names in need.items():
+            for r in ranks:
+                if any(r[label]["launches"][n] < 1 for n in names):
+                    raise AssertionError(f"16 {label}: launches {r[label]['launches']}, needs {names}")
+                for key, c in r[label]["shapes"].items():
+                    SHAPE_LAUNCHES[key] += c
+
+        cb = lambda label: ref[label]["codebook"]
+        lines = []
+        for label in ("speech", "speech EMA"):
+            lines.append(f"{label}: " + mesh_compare(label, ranks, ref[label], GRAD_RTOL, ref[label]["latent"], cb(label),
+                                                      seq=True))
+            for r in ranks[1:]:
+                assert_bitwise(r[label]["state"], ranks[0][label]["state"], f"16 (a) {label} codebook rank 0 vs 1")
+        got_s, want_s = ranks[0]["speech EMA"]["state"], ref["speech EMA"]["state"]
+        codes = torch.cat([r["speech EMA"]["codes"] for r in ranks], dim=-1)
+        if torch.equal(codes, ref["speech EMA"]["codes"]) and not torch.equal(got_s["_vq.ema_counts"],
+                                                                             want_s["_vq.ema_counts"]):
+            raise AssertionError("16 (a) the EMA counts differ on equal codes")
+        sums_err = max_rel(got_s["_vq.ema_sums"], want_s["_vq.ema_sums"])
+        if sums_err > DP_SUMS_RTOL:
+            raise AssertionError(f"16 (a) EMA sums {sums_err} of their max, limit {DP_SUMS_RTOL}")
+        lines.append("echoed: " + mesh_compare("echoed", ranks, ref["echoed"], GRAD_RTOL, ref["echoed"]["latent"],
+                                               cb("echoed"), seq=True))
+        halo = ranks[0]["speech"]["halo"]
+        phase(16, "(a) seq = 2, two ranks on the one card (gloo), B = " f"{MESH_B} at full width against the single "
+                  "process: " + "; ".join(lines) + f"; EMA counts exact, sums within {sums_err:.3g}; halo exchanges of "
+                  f"the speech step by path {halo} (a gloo group takes the summed buffer for CUDA tensors, point to point "
+                  "for CPU ones; NCCL point to point); launches "
+                  + ", ".join(f"{label} {ranks[0][label]['launches']}" for label in ("speech", "speech EMA", "echoed"))
+                  + f"; the speech step median of {MESH_TIMED}: {ranks[0]['speech']['step_ms']:.2f} ms on a rank against "
+                  f"{single_ms:.2f} ms in one process ({card})")
+
+        got, want = ranks, ref["long"]
+        recon = torch.cat([r["long"]["recon"] for r in got], dim=-1)
+        codes = torch.cat([r["long"]["codes"] for r in got], dim=-1)
+        mism, _ = check_codes(want["latent"], weights["speech"]["_vq._embedding.weight"], codes.reshape(-1),
+                              want["codes"].reshape(-1), "16 (b) codes")
+        loss_err = abs(float(got[0]["long"]["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+        recon_err = max_rel(recon, want["recon"])
+        if loss_err > LOSS_RTOL or (mism == 0 and (recon_err > LOSS_RTOL
+                                                   or not torch.equal(got[0]["long"]["perplexity"], want["perplexity"]))):
+            raise AssertionError(f"16 (b) loss {loss_err}, recon {recon_err}, codes differ on {mism} rows")
+        phase(16, f"(b) seq = 2 at {MESH_LONG} frames (B = {MESH_LONG_B}, 8x the reference's 500-frame cut), the speech "
+                  f"model's forward: loss within {loss_err:.3g}, reconstruction within {recon_err:.3g} of its max, codes "
+                  f"differ on {mism} tie rows; launches {got[0]['long']['launches']} ({card})")
+
+        lines = [f"speech: " + mesh_compare("mp speech", ranks, ref["speech"], GRAD_RTOL),
+                 f"location: " + mesh_compare("mp location", ranks, ref["location"], LOSS_RTOL)]
+        fc = ranks[0]["mp location"]["fc_1"]
+        if fc["local"] * 2 != fc["whole"] or fc["adam"] != fc["whole"] or fc["shard"][0] != 1:
+            raise AssertionError(f"16 (c) fc_1: {fc}, want half of its weights and of its Adam moments a rank, split "
+                                 "by its input features")
+        by = ranks[0]["mp location"]["bytes"]
+        phase(16, "(c) model = 2, two ranks on the one card (gloo), against the replicated step: " + "; ".join(lines)
+                  + f"; fc_1 split by its input features, {fc['local']} weights and {fc['adam']} Adam "
+                  f"moments a rank (half); a rank of the location stage holds {by['params'] / 1e6:.1f} MB of weights "
+                  f"and {by['adam'] / 1e6:.1f} MB of Adam moments, {by['allocated'] / 1e9:.3f} GB allocated; the speech step "
+                  f"median of {MESH_TIMED}: {ranks[0]['mp speech']['step_ms']:.2f} ms on a rank; launches "
+                  f"speech {ranks[0]['mp speech']['launches']}, location {ranks[0]['mp location']['launches']} ({card})")
+
+        mesh_cli_finish(clis, t_cli, card)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    time_nearest(16, MESH_B * 250, SPEECH_D, SPEECH_K, gen, card)  # a time shard's rows (seq = 2)
+    time_nearest(16, MESH_B * 500, SPEECH_D, SPEECH_K // 2, gen, card)  # half the codebook (model = 2)
+    time_accum(16, MESH_B * 250, SPEECH_D, SPEECH_K, "uniform", gen, card)
+    time_accum(16, MESH_B * 500, SPEECH_D, SPEECH_K // 2, "uniform", gen, card)
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    phase(16, f"phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def manifest_task(stage: str, cfg, compute_dtype: str = "float32"):
@@ -3382,6 +3918,15 @@ def main() -> int:
         accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
         time_training_kernels(dev, card)
         time_stage_kernels(dev, card)
+        print_kernels_line(max_err, accum_err)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if MESH in sys.argv[1:]:
+        # phases 2 and 16, then the kernels' checks and timings, for the kernels line of phase 16's launches
+        max_err = check_nearest(vq, nearest_indices_cuda, dev)
+        mesh_phase(dev, card)
+        accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
         print_kernels_line(max_err, accum_err)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
@@ -3608,6 +4153,9 @@ def main() -> int:
     # and the rest of eval/ (bench_gpu.py, the latents of phase 14's store)
     data_parallel_phase(dev, counters, card)
 
+    # ---- phase 16: sequence and tensor sharding (two ranks on the card), the CLI's mesh flags under torchrun
+    mesh_phase(dev, card)
+
     print_kernels_line(max_err, accum_err)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -3637,4 +4185,6 @@ def print_kernels_line(max_err: float, accum_err: float) -> None:
 if __name__ == "__main__":
     if DP_RANK in sys.argv[1:]:
         sys.exit(dp_rank_main(sys.argv[sys.argv.index(DP_RANK) + 1:]))
+    if MESH_RANK in sys.argv[1:]:
+        sys.exit(mesh_rank_main(sys.argv[sys.argv.index(MESH_RANK) + 1:]))
     sys.exit(main())

@@ -42,10 +42,19 @@ Data parallelism over N cards of one machine (the JAX ``--mesh-data``)::
     torchrun --nproc-per-node N -m acoustic_locating_vq_vae_torch.cli.run_pipeline --data-parallel ...
 
 Every rank makes (or reads) the same sets from ``--seed`` and trains its
-share of each batch on ``cuda:{LOCAL_RANK}`` over NCCL; rank 0 alone writes
-the store, prints and evaluates. ``--mesh-model``, ``--mesh-seq``,
-``--mesh-slices``, ``--model-parallel`` and ``--sequence-parallel`` are
-accepted and raise for anything but 1 / off: they are the next slice.
+share of each batch on ``cuda:{LOCAL_RANK}`` over NCCL; the mesh's first rank
+alone writes the store, prints and evaluates. The other axes of the JAX mesh
+lay the same ranks out as ``(data, model, seq)`` (``parallel.make_mesh``)::
+
+    torchrun --nproc-per-node 2 -m acoustic_locating_vq_vae_torch.cli.run_pipeline --mesh-seq 2 --sequence-parallel ...
+    torchrun --nproc-per-node 2 -m acoustic_locating_vq_vae_torch.cli.run_pipeline --mesh-model 2 --model-parallel ...
+
+``--sequence-parallel`` shards the time axis of the speech, echoed and
+finetune stages over the ``seq`` axis (it needs the vectors VQ flatten, the
+``fixed`` preset's; the compat flatten raises), ``--model-parallel`` splits
+the large parameters over the ``model`` axis, and ``--mesh-slices N`` orders
+the ranks node by node (torchrun's ``GROUP_RANK``) so that only the data axis
+crosses nodes. ``--device cpu`` runs every axis over gloo.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ import sys
 import numpy as np
 
 __all__ = [
-    "add_data_args", "add_mesh_args", "add_model_args", "add_synthesis_args", "build_parser", "data_parallel", "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
+    "add_data_args", "add_mesh_args", "add_model_args", "add_synthesis_args", "build_parser", "data_parallel",
+    "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
     "recipe_kwargs", "smoke_config", "synthesis_kwargs",
 ]
 
@@ -196,38 +206,51 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
 
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
-    """The parallelism flags (the JAX ``scripts/_common.py:46-63``): the data
-    axis, and the axes of the next slice, which raise."""
+    """The parallelism flags (the JAX ``scripts/_common.py:46-63``)."""
     p.add_argument("--data-parallel", action="store_true",
                    help="train data-parallel over the ranks torchrun started (torchrun --nproc-per-node N): one card "
                    "per rank, NCCL, each rank its block of every batch; rank 0 writes the store")
     p.add_argument("--mesh-data", type=int, default=-1,
-                   help="(--data-parallel) data-parallel axis size; -1 (default) = every rank")
-    p.add_argument("--mesh-model", type=int, default=1, help="model-parallel axis size (only 1: the next slice)")
-    p.add_argument("--mesh-seq", type=int, default=1, help="sequence-parallel axis size (only 1: the next slice)")
-    p.add_argument("--mesh-slices", type=int, default=1, help="multi-slice layouts (only 1: the next slice)")
-    p.add_argument("--model-parallel", action="store_true", help="shard large parameters (the next slice: raises)")
-    p.add_argument("--sequence-parallel", action="store_true", help="shard the time axis (the next slice: raises)")
+                   help="data-parallel axis size; -1 (default) = every rank the other axes leave")
+    p.add_argument("--mesh-model", type=int, default=1, help="model-parallel axis size (under torchrun)")
+    p.add_argument("--mesh-seq", type=int, default=1, help="sequence-parallel axis size: time sharding (under torchrun)")
+    p.add_argument("--mesh-slices", type=int, default=1,
+                   help="multi-node layouts: order the ranks node by node (torchrun's GROUP_RANK) so that only the "
+                   "data axis crosses nodes and every model/seq group stays within one (make_mesh(slices=))")
+    p.add_argument("--sequence-parallel", action="store_true",
+                   help="shard the time axis over the 'seq' mesh axis (needs the vectors VQ flatten); speech, "
+                   "echoed, and finetune stages — the rir stage's conv length is the short freq axis, as is the "
+                   "location stages'")
+    p.add_argument("--model-parallel", action="store_true", help="shard large params over the model axis")
 
 
 def data_parallel(args):
-    """The rank's :class:`..parallel.DataParallel` handle for
-    ``--data-parallel`` (joining the group torchrun set up, on
-    ``cuda:{LOCAL_RANK}``, which replaces ``args.device``), or None; the
-    axes of the next slice raise ``NotImplementedError``."""
-    from ..parallel import check_mesh, init_data_parallel
+    """The rank's :class:`..parallel.DataParallel` handle on the mesh the
+    flags ask for, or None: under ``--data-parallel`` or any mesh axis above
+    one, the group torchrun set up is joined (on ``cuda:{LOCAL_RANK}``, which
+    replaces ``args.device``) and its ranks laid out by ``make_mesh``."""
+    from ..parallel import init_data_parallel, make_mesh
 
-    check_mesh(args.mesh_model, args.mesh_seq, args.mesh_slices,
-               sequence_parallel=args.sequence_parallel or args.model_parallel)
-    if not args.data_parallel:
+    if args.sequence_parallel and args.vq_flatten == "compat":
+        raise ValueError("--sequence-parallel requires the vectors VQ flatten (--vq-flatten vectors): the "
+                         "reference's memory-order flatten chunks across time positions and cannot be computed "
+                         "with the time axis sharded")
+    if args.sequence_parallel and args.vq_flatten is None and args.preset == "compat":
+        raise ValueError("--sequence-parallel requires the vectors VQ flatten: --preset compat resolves to the "
+                         "reference's memory-order flatten; add --vq-flatten vectors")
+    axes = max(args.mesh_model, args.mesh_seq, args.mesh_slices) > 1
+    if not (args.data_parallel or axes):
         if args.mesh_data not in (-1, 1):
             raise SystemExit(f"--mesh-data {args.mesh_data} needs --data-parallel under torchrun --nproc-per-node N")
         return None
-    dp = init_data_parallel(device=args.device)
-    if args.mesh_data not in (-1, dp.world_size):
-        raise SystemExit(f"--mesh-data {args.mesh_data} != the {dp.world_size} ranks torchrun started")
-    args.device = str(dp.device)
-    return dp
+    world = init_data_parallel(device=args.device)
+    mesh = make_mesh(data=args.mesh_data, model=args.mesh_model, seq=args.mesh_seq, slices=args.mesh_slices,
+                     world=world)
+    if mesh is None:
+        raise SystemExit(f"the mesh {args.mesh_data} x {args.mesh_model} x {args.mesh_seq} leaves rank "
+                         f"{world.global_rank} of {world.world_size} out: start as many ranks as the mesh holds")
+    args.device = str(world.device)
+    return mesh
 
 
 def add_synthesis_args(p: argparse.ArgumentParser) -> None:
@@ -429,10 +452,11 @@ def _train_and_evaluate(args, dp) -> None:
         ),
         resume=args.resume, ckpt_every=args.ckpt_every, device=args.device, log_every=args.log_every,
         profile_dir=args.profile_dir, cache_frozen=args.cache_frozen, keep_checkpoints=args.keep_checkpoints,
-        data_parallel=dp, **recipe, **otf_kwargs(args),
+        mesh=dp, model_parallel=args.model_parallel, sequence_axis="seq" if args.sequence_parallel else None,
+        **recipe, **otf_kwargs(args),
     )
-    if dp is not None and dp.rank != 0:
-        return  # rank 0 evaluates: every rank holds the same weights
+    if dp is not None and not dp.lead:
+        return  # the first rank evaluates: every rank holds the same weights
 
     fixed = args.preset == "fixed"
     flatten = flatten if flatten is not None else not fixed

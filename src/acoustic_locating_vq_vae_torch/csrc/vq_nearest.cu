@@ -4,14 +4,24 @@
 // acoustic_locating_vq_vae_tpu/ops/vq_pallas.py (driven by `_fwd_impl`).
 // For each row x_n of x (N, D) it writes
 //
-//     idx[n] = argmin_k (e2[k] - 2 * x_n . e_k)        (int32)
+//     idx[n]   = argmin_k (e2[k] - 2 * x_n . e_k)      (int32)
+//     score[n] = min_k    (e2[k] - 2 * x_n . e_k)      (float32)
 //
 // the same score as the Pallas kernel: ||x_n||^2 is row-constant and never
 // computed, e2[k] = ||e_k||^2 comes in precomputed (as in `_fwd_impl`), the
 // dot products are plain FP32 FMAs summed over the features in ascending
 // order (no TF32, no bf16), and on ties the lowest k wins. A row whose every
-// score is NaN or +inf takes code 0. Ragged N, K and D are masked here;
-// nothing is padded. The row gather codebook[idx] stays outside the kernel.
+// score is NaN or +inf takes code 0 with score +inf. Ragged N, K and D are
+// masked here; nothing is padded. The row gather codebook[idx] stays outside
+// the kernel.
+//
+// The winning score is written beside the id so that a codebook split by rows
+// over several ranks (tensor sharding) can merge the shards' winners: the
+// least score, the lowest global index on equal scores. A code's score is
+// one FMA chain over its features in ascending order, whatever the cluster
+// split or the tile the code falls in, so it depends only on x_n, e_k and
+// e2[k]: the shards' scores are bitwise the unsplit kernel's, and the merge
+// picks the unsplit kernel's code.
 //
 // What bounds it. The work is 2*N*K*D FP32 operations against 4*(N*D + K*D +
 // K + N) bytes: at B = 64 serving (N = 12,864, D = 64, K = 1024) 1.69 GFLOP
@@ -149,7 +159,8 @@ __device__ __forceinline__ void fill_tile(float* dst, int dst_stride, const floa
 template <bool XRES>
 __global__ void __launch_bounds__(THREADS)
 vq_nearest_kernel(const float* __restrict__ x, const float* __restrict__ cb, const float* __restrict__ e2,
-                  int32_t* __restrict__ idx, int n, int k, int d, int slices, int aligned) {
+                  int32_t* __restrict__ idx, float* __restrict__ score, int n, int k, int d, int slices,
+                  int aligned) {
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   __shared__ float cand_score[MAX_SLICES][BM];  // rank 0's: each slice's best per row
@@ -329,8 +340,11 @@ vq_nearest_kernel(const float* __restrict__ x, const float* __restrict__ cb, con
         c = cand_code[r][tid];
       }
     }
-    // a row whose every score was +inf or NaN takes code 0, as argmin does
-    if (row0 + tid < n) idx[row0 + tid] = (c == INT_MAX) ? 0 : c;
+    // a row whose every score was +inf or NaN takes code 0 (as argmin does), its score +inf
+    if (row0 + tid < n) {
+      idx[row0 + tid] = (c == INT_MAX) ? 0 : c;
+      score[row0 + tid] = s;
+    }
   }
 }
 
@@ -355,8 +369,8 @@ int sm_count() {
 }
 
 template <bool XRES>
-int launch(const float* x, const float* cb, const float* e2, int32_t* idx, int n, int k, int d, int slices,
-           int aligned, cudaStream_t stream) {
+int launch(const float* x, const float* cb, const float* e2, int32_t* idx, float* score, int n, int k, int d,
+           int slices, int aligned, cudaStream_t stream) {
   auto kernel = vq_nearest_kernel<XRES>;
   static bool raised[MAX_DEVICES] = {};  // the shared-memory limit is raised once a device
   const int dev = current_device();
@@ -378,7 +392,7 @@ int launch(const float* x, const float* cb, const float* e2, int32_t* idx, int n
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, x, cb, e2, idx, n, k, d, slices, aligned);
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, x, cb, e2, idx, score, n, k, d, slices, aligned);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -387,8 +401,8 @@ __global__ void noop_kernel() {}
 }  // namespace
 
 // Launches on `stream` and returns the CUDA error of the launch (0 on success).
-extern "C" int vq_nearest_launch(const float* x, const float* cb, const float* e2, int32_t* idx, int n, int k,
-                                 int d, void* stream) {
+extern "C" int vq_nearest_launch(const float* x, const float* cb, const float* e2, int32_t* idx, float* score,
+                                 int n, int k, int d, void* stream) {
   if (n <= 0 || k <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   const int row_tiles = (n + BM - 1) / BM;
   const int code_tiles = (k + BN - 1) / BN;
@@ -408,8 +422,8 @@ extern "C" int vq_nearest_launch(const float* x, const float* cb, const float* e
   }
   const int aligned = d % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)cb % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return d <= XRES_MAX_D ? launch<true>(x, cb, e2, idx, n, k, d, slices, aligned, st)
-                         : launch<false>(x, cb, e2, idx, n, k, d, slices, aligned, st);
+  return d <= XRES_MAX_D ? launch<true>(x, cb, e2, idx, score, n, k, d, slices, aligned, st)
+                         : launch<false>(x, cb, e2, idx, score, n, k, d, slices, aligned, st);
 }
 
 // One launch of a kernel that does nothing: the card's floor for one launch.

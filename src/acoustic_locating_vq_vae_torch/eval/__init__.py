@@ -32,13 +32,13 @@ from .torch_import import (
     vqvae_params,
 )
 from .tracking import alpha_beta_filter, arc_trajectory, track_metrics, walk_trajectory, wrap_angle
-from .weights import composite_params_from_jax, params_from_jax
+from .weights import composite_params_from_jax, params_from_jax, partition_specs_from_jax
 
 __all__ = [
     "alpha_beta_filter", "arc_trajectory", "audio_from_complex_spec", "audio_from_power_spec", "build_echoed", "build_location", "build_vqvae", "collect_encodings", "compare_location_models",
     "composite_params_from_jax", "decoder_params", "echoed_params", "evaluate_joint_location", "evaluate_location",
     "export_localizer", "full_fp32", "infer_location_modes", "infer_target_mode", "linear_angle_probe",
     "load_localizer", "load_reference_state", "location_params", "make_serving_fn", "params_fingerprint",
-    "params_from_jax", "spectral_snr_db", "store_provenance", "track_metrics", "tsne_rir_embedding",
+    "params_from_jax", "partition_specs_from_jax", "spectral_snr_db", "store_provenance", "track_metrics", "tsne_rir_embedding",
     "update_sidecar", "vqvae_params", "walk_trajectory", "wrap_angle", "write_wav",
 ]

@@ -17,7 +17,8 @@ of JAX is imported. Layout changes:
     ``vq_stats`` collection, with the EMA counts and sums.
 
 The maps are linear, so a gradient tree of the same structure comes across
-the same way.
+the same way, and so does the split dim of a partition spec
+(:func:`partition_specs_from_jax`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "composite_params_from_jax"]
+__all__ = ["params_from_jax", "composite_params_from_jax", "partition_specs_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -149,3 +150,26 @@ def composite_params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     _vqvae(tree["speech_model"], "speech_model", 3, out)
     _decoder(tree["_decoder"], "_decoder", 2, out)
     return out
+
+
+def partition_specs_from_jax(specs: Any, num_residual_layers: int = 2, composite: bool = False) -> Dict[str, tuple]:
+    """The port's partition spec of every parameter (``parallel.sharding_rules``'
+    form: ``"model"`` at the split dim of the torch layout, or ``()``) from a
+    tree of the JAX package's, one per flax parameter, each written out to
+    the parameter's rank (``(None, None, "model")``, ``(None, None, None)``).
+    Each spec becomes an array of ones with a 2 at its split dim, which goes
+    through :func:`params_from_jax` (``composite``: :func:`composite_params_from_jax`)
+    as a weight would, so the split dim lands where the layout changes put
+    it."""
+
+    def indicator(spec) -> np.ndarray:
+        return np.ones(tuple(2 if axis == "model" else 1 for axis in spec), np.float32)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return indicator(tree)
+
+    arrays = walk(specs)
+    out = composite_params_from_jax(arrays) if composite else params_from_jax(arrays, num_residual_layers)
+    return {k: (tuple("model" if n == 2 else None for n in v.shape) if 2 in v.shape else ()) for k, v in out.items()}

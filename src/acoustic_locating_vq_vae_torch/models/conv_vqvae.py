@@ -2,7 +2,17 @@
 
 Counterpart of ``acoustic_locating_vq_vae_tpu/models/conv_vqvae.py`` (reference:
 vq_vae/convolutional_vq_vae.py:18-105, convolutional_encoder.py:7-44,
-deconvolutional_decoder.py:7-79), without the sequence sharding.
+deconvolutional_decoder.py:7-79).
+
+``sequence_axis`` (JAX ``:41-105, 157-170``) names the mesh axis that shards
+the time axis: every 3-tap conv and transposed conv exchanges halos, the
+jitter reads its window of the global decisions, the quantizer sums its code
+counts and EMA statistics over the axis, and a mean over time is the mean
+over the shards. It needs the vectors VQ flatten (``compat_vq_flatten=False``):
+the reference's memory-order flatten makes each quantized row D consecutive
+time frames, which cross the shards. The mesh comes from
+:func:`sequence_sharding` while a sharded step runs; without one the model is
+the plain model, parameter for parameter.
 
 ``compute_dtype`` (None for float32, or ``torch.bfloat16``; JAX ``:144, 178,
 182, 205``) is the conv stacks' compute dtype: every conv computes in it (see
@@ -21,6 +31,7 @@ packages; module attributes carry the reference's state-dict keys
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -32,7 +43,23 @@ from ..ops.jitter import Jitter
 from ..ops.residual import ResidualStack
 from ..ops.vq import VectorQuantizer, VQOutput
 
-__all__ = ["ConvolutionalEncoder", "DeconvolutionalDecoder", "ConvolutionalVQVAE"]
+__all__ = ["ConvolutionalEncoder", "DeconvolutionalDecoder", "ConvolutionalVQVAE", "sequence_sharding"]
+
+
+@contextlib.contextmanager
+def sequence_sharding(module: nn.Module, mesh):
+    """While open, every submodule of ``module`` built with a
+    ``sequence_axis`` runs on that axis of ``mesh`` (its ``mesh``); the
+    previous meshes come back on exit."""
+    mods = [m for m in module.modules() if getattr(m, "sequence_axis", None) is not None]
+    saved = [m.mesh for m in mods]
+    for m in mods:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m, g in zip(mods, saved):
+            m.mesh = g
 
 
 class ConvolutionalEncoder(nn.Module):
@@ -50,15 +77,17 @@ class ConvolutionalEncoder(nn.Module):
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
         # the reference quirk needs a first block to have mutated x1 in place
         self.skip_relu = compat_inplace_relu and num_residual_layers > 0
-        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator, compute_dtype=compute_dtype)
+        self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator, compute_dtype=compute_dtype,
+                              sequence_axis=sequence_axis)
         self._residual_stack = ResidualStack(
             num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
             compat_init=compat_init, compat_inplace_relu=compat_inplace_relu, generator=generator,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, sequence_axis=sequence_axis,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,10 +117,11 @@ class DeconvolutionalDecoder(nn.Module):
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
-        dt = dict(compute_dtype=compute_dtype)
-        self._jitter = Jitter(jitter_probability) if use_jitter else None
+        dt = dict(compute_dtype=compute_dtype, sequence_axis=sequence_axis)
+        self._jitter = Jitter(jitter_probability, sequence_axis=sequence_axis) if use_jitter else None
         self._conv_1 = Conv1d(in_channels, num_hiddens, 3, padding=1, generator=generator, **dt)
         self._residual_stack = ResidualStack(
             num_hiddens, num_residual_layers, num_residual_hiddens, tied=tied,
@@ -122,6 +152,8 @@ class ConvolutionalVQVAE(nn.Module):
     ``(B, D, L)`` latent to ``(-1, D)`` without permuting, so each row is D
     consecutive samples along time. ``False`` quantizes proper channel vectors
     (the latent permuted to ``(B, L, D)`` first). Both give B*L rows.
+    ``sequence_axis`` shards the time axis (see the module docstring) and
+    raises with the memory-order flatten.
 
     ``decoder=False`` builds the encode half only (the localizers' RIR
     branch). ``compute_dtype`` goes to the encoder, the pre-VQ conv and the
@@ -150,9 +182,16 @@ class ConvolutionalVQVAE(nn.Module):
         decoder: bool = True,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
-        dt = dict(compute_dtype=compute_dtype)
+        if sequence_axis is not None and compat_vq_flatten:
+            raise ValueError(
+                "sequence_axis requires compat_vq_flatten=False: the reference's memory-order VQ flatten chunks "
+                "across time positions and cannot be computed with the time axis sharded")
+        dt = dict(compute_dtype=compute_dtype, sequence_axis=sequence_axis)
+        self.sequence_axis = sequence_axis
+        self.mesh = None
         self.embedding_dim = embedding_dim
         self.num_embeddings = num_embeddings
         self.compat_vq_flatten = compat_vq_flatten
@@ -164,7 +203,7 @@ class ConvolutionalVQVAE(nn.Module):
         self._pre_vq_conv = Conv1d(num_hiddens, embedding_dim, 3, padding=1, generator=generator, **dt)
         self._vq = VectorQuantizer(
             num_embeddings, embedding_dim, commitment_cost, generator=generator,
-            ema=vq_ema, ema_decay=vq_ema_decay, ema_reset_threshold=vq_ema_reset,
+            ema=vq_ema, ema_decay=vq_ema_decay, ema_reset_threshold=vq_ema_reset, sequence_axis=sequence_axis,
         )
         # The localizers run only the encode half: their RIR branch has no
         # decoder, as flax creates no parameters for an uncalled submodule.
@@ -185,6 +224,10 @@ class ConvolutionalVQVAE(nn.Module):
         z = self._pre_vq_conv(self._encoder(x))
         if self.encoder_average_pooling:
             z = torch.mean(z, dim=2, keepdim=True)  # over time (convolutional_vq_vae.py:96-97)
+            if self.sequence_axis is not None and self.mesh is not None:
+                from ..parallel.sequence import seq_pmean
+
+                z = seq_pmean(z, self.mesh, self.sequence_axis)
         z = z.to(self._vq._embedding.weight.dtype)  # the assignment in float32 whatever the compute dtype
         if self.compat_vq_flatten:
             # the quantizer's reshape(-1, D) of the contiguous (B, D, L) latent

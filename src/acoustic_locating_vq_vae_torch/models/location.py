@@ -2,6 +2,12 @@
 
 Counterpart of ``acoustic_locating_vq_vae_tpu/models/location.py`` (reference:
 vq_vae/location_model/location_model.py:5-29).
+
+On a model axis (``parallel.shard_model``) the partition rules split each
+large ``Dense`` by its larger dimension (JAX ``sharding_rules.py:47-52``): the
+frozen localizer's fc_1 (205,824 x 1,024, 843 MB) by its input features, so a
+rank holds its block of the weight and of Adam's moments and the partial
+outputs are summed over the group (``ops/conv.py``).
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 stacks, latent jitter, the vector quantizer and its CUDA kernels."""
 
 from .conv import Conv1d, ConvTranspose1d, Dense
-from .jitter import Jitter, jitter, jitter_decisions
+from .jitter import Jitter, jitter, jitter_decisions, jitter_sharded
 from .residual import Residual, ResidualStack
 from .vq import (
     VQ_NEAREST_OP,
+    VQ_NEAREST_SCORED_OP,
     VectorQuantizer,
     VQOutput,
     assign,
@@ -13,9 +14,12 @@ from .vq import (
     codebook_grad_plain,
     codebook_stats,
     codebook_stats_plain,
+    merge_nearest,
     nearest_codebook,
     nearest_indices,
+    nearest_scored,
     vq_nearest,
+    vq_nearest_scored,
 )
 from .vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
 
@@ -26,12 +30,17 @@ __all__ = [
     "Jitter",
     "jitter",
     "jitter_decisions",
+    "jitter_sharded",
     "Residual",
     "ResidualStack",
     "VectorQuantizer",
     "VQOutput",
     "VQ_NEAREST_OP",
+    "VQ_NEAREST_SCORED_OP",
     "vq_nearest",
+    "vq_nearest_scored",
+    "merge_nearest",
+    "nearest_scored",
     "assign",
     "codebook_grad",
     "codebook_grad_plain",

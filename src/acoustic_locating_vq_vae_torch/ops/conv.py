@@ -27,11 +27,25 @@ bf16 (bitwise JAX's on the tests' inputs; torch's native CPU bf16
 convolution lies about one ulp of the maximum away). ``Dense`` has no
 compute dtype: the location head stays float32, as JAX's does
 (``models/location.py:26-30``).
+
+Two kinds of sharding, both switched on from outside the module:
+
+* ``sequence_axis`` (a mesh axis name, JAX ``ops/conv.py:43-60``): the conv
+  runs on a time shard, exchanges its (k-1)/2 edge frames with its neighbours
+  on that axis of the mesh that :func:`..models.conv_vqvae.sequence_sharding`
+  installs (``mesh``) and convolves VALID; the SAME stride-1 conv of the whole
+  sequence. Without a mesh, or on an axis of one rank, it is the plain conv.
+* a weight split over the model axis (``parallel.shard_model`` gives it a
+  ``model_shard``): column-parallel where its out-features are split, the
+  rank's block of the output channels gathered over the group; row-parallel
+  where its in-features are split, the rank's block of the input channels in
+  and the partial outputs summed over the group; the bias after the
+  collective (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +71,70 @@ def _conv(fn, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     return y if bias is None else y + bias.to(compute_dtype)[:, None]
 
 
-class Conv1d(nn.Module):
+class _Sharded(nn.Module):
+    """What :class:`Conv1d`, :class:`ConvTranspose1d` and :class:`Dense`
+    share: the optional halo of a time shard and the model-axis split of the
+    weight. ``OUT_DIM`` is the weight's out-features dim, ``CHANNELS`` the
+    input's feature dim."""
+
+    OUT_DIM = 0
+    CHANNELS = 1
+    sequence_axis: Optional[str] = None
+    mesh = None  # the process mesh whose sequence axis a time shard runs on
+    padding = 0
+
+    def _local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The layer on ``x`` with the rank's weight block (the whole weight
+        where it is not split) and ``bias`` (None: none)."""
+        raise NotImplementedError
+
+    def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _halo(self, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """(the input, the padding the conv then takes): on a sharded time
+        axis the input with its neighbours' frames and no padding."""
+        if self.sequence_axis is None or self.padding == 0 or self.mesh is None \
+                or self.mesh.axis(self.sequence_axis)[2] == 1:
+            return x, self.padding
+        # imported here: loading an exported artifact imports the operator's module alone, not parallel/
+        from ..parallel.sequence import halo_exchange
+
+        return halo_exchange(x, self.padding, self.mesh, self.sequence_axis), 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sharded_forward(x)
+
+    def sharded_forward(self, x: torch.Tensor, enter: bool = True, leave: bool = True) -> torch.Tensor:
+        """The layer, on a split weight Megatron-style: ``enter`` marks the
+        replicated input (and cuts a row-parallel layer's block of it),
+        ``leave`` gathers a column-parallel layer's output channels or sums a
+        row-parallel layer's partial outputs, and adds the bias. A residual
+        block leaves its column-parallel 3-tap conv and enters its
+        row-parallel 1x1 conv without either."""
+        shard = getattr(self.weight, "model_shard", None)
+        if shard is None:
+            return self._local(x, self.bias)
+        from ..parallel.tensor import model_copy, model_gather, model_reduce
+
+        row = shard.dim != self.OUT_DIM
+        if enter:
+            x = model_copy(x, shard.mesh)
+            if row:
+                x = x.narrow(self.CHANNELS, shard.lo, shard.block)
+        y = self._local(x, None)
+        if not leave:
+            return y
+        y = model_reduce(y, shard.mesh) if row else model_gather(y, shard.mesh, self.CHANNELS)
+        return y if self.bias is None else self._add_bias(y)
+
+
+def _check_same(sequence_axis: Optional[str], kernel_size: int, padding: int) -> None:
+    if sequence_axis is not None and padding and padding != (kernel_size - 1) // 2:
+        raise ValueError("sequence_axis requires stride-1 SAME convs")
+
+
+class Conv1d(_Sharded):
     """Stride-1 1-D convolution ``(B, C_in, L) -> (B, C_out, L)``, in
     ``compute_dtype`` where one is given.
 
@@ -75,12 +152,15 @@ class Conv1d(nn.Module):
         init_mode: str = "kaiming",
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
         if init_mode not in ("kaiming", "torch_default"):
             raise ValueError(f"unknown init_mode {init_mode!r}")
+        _check_same(sequence_axis, kernel_size, padding)
         self.padding = padding
         self.compute_dtype = compute_dtype
+        self.sequence_axis = sequence_axis
         fan_in = kernel_size * in_channels
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
         init = kaiming_uniform_relu_ if init_mode == "kaiming" else torch_default_
@@ -90,11 +170,16 @@ class Conv1d(nn.Module):
         else:
             self.register_parameter("bias", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv(F.conv1d, x, self.weight, self.bias, self.padding, self.compute_dtype)
+    def _local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        x, padding = self._halo(x)
+        return _conv(F.conv1d, x, self.weight, bias, padding, self.compute_dtype)
+
+    def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return y + (self.bias if dt is None else self.bias.to(dt))[:, None]
 
 
-class ConvTranspose1d(nn.Module):
+class ConvTranspose1d(_Sharded):
     """Stride-1 transposed convolution ``(B, C_in, L) -> (B, C_out, L)``,
     weight ``(in, out, k)`` (deconvolutional_decoder.py:36-61), in
     ``compute_dtype`` where one is given.
@@ -102,7 +187,10 @@ class ConvTranspose1d(nn.Module):
     Init draws from the JAX module's distribution, whose kernel is that of a
     plain conv: kaiming-uniform weight and torch-default bias, both with
     ``fan_in = k * in_channels``. (torch's own ConvTranspose1d takes its fan-in
-    from ``out * k``, which is not the JAX package's.)"""
+    from ``out * k``, which is not the JAX package's.) On a time shard the
+    haloed input's transposed conv crops the halo with its padding."""
+
+    OUT_DIM = 1
 
     def __init__(
         self,
@@ -112,27 +200,43 @@ class ConvTranspose1d(nn.Module):
         padding: int = 1,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
+        _check_same(sequence_axis, kernel_size, padding)
         self.padding = padding
         self.compute_dtype = compute_dtype
+        self.sequence_axis = sequence_axis
         fan_in = kernel_size * in_channels
         self.weight = nn.Parameter(
             kaiming_uniform_relu_(torch.empty(in_channels, out_channels, kernel_size), fan_in, generator)
         )
         self.bias = nn.Parameter(torch_default_(torch.empty(out_channels), fan_in, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv(F.conv_transpose1d, x, self.weight, self.bias, self.padding, self.compute_dtype)
+    def _local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        xh, padding = self._halo(x)
+        # the halo frames widen the transposed conv's output as much as padding narrows it
+        padding = self.padding if xh is x else 2 * self.padding
+        return _conv(F.conv_transpose1d, xh, self.weight, bias, padding, self.compute_dtype)
+
+    def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return y + (self.bias if dt is None else self.bias.to(dt))[:, None]
 
 
-class Dense(nn.Module):
-    """Linear layer with torch's default init (location_model.py:10-18)."""
+class Dense(_Sharded):
+    """Linear layer with torch's default init (location_model.py:10-18);
+    row- or column-parallel on a weight split over the model axis."""
+
+    CHANNELS = -1
 
     def __init__(self, in_features: int, out_features: int, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.weight = nn.Parameter(torch_default_(torch.empty(out_features, in_features), in_features, generator))
         self.bias = nn.Parameter(torch_default_(torch.empty(out_features), in_features, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+    def _local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return F.linear(x, self.weight, bias)
+
+    def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y + self.bias

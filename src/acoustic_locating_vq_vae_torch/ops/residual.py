@@ -17,6 +17,11 @@ reference quirks as the compat defaults:
 
 ``compute_dtype`` goes to every conv (JAX ``ops/residual.py:44-59,75-97``); the
 ReLUs and the skips run in the dtype of what they receive, as in JAX.
+``sequence_axis`` goes to the 3-tap conv (the 1x1 conv needs no halo). On the
+model axis a block whose 3-tap conv is column-parallel and whose 1x1 conv is
+row-parallel (the partition rules make both or neither) runs them as a
+Megatron pair: the hidden channels stay split between them, and one sum over
+the group ends the residual branch (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -44,13 +49,14 @@ class Residual(nn.Module):
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
         self.compat_inplace_relu = compat_inplace_relu
         self._block = nn.Sequential(
             nn.ReLU(),
             Conv1d(num_hiddens, num_residual_hiddens, 3, padding=1, bias=False, generator=generator,
-                   compute_dtype=compute_dtype),
+                   compute_dtype=compute_dtype, sequence_axis=sequence_axis),
             nn.ReLU(),
             Conv1d(
                 num_residual_hiddens, num_hiddens, 1, padding=0, bias=False,
@@ -63,7 +69,14 @@ class Residual(nn.Module):
         # one ReLU feeds the block and the compat skip, as in JAX: in bf16 the
         # gradients of its two uses are summed (and rounded) before the ReLU
         rx = F.relu(x)
-        h = self._block[1:](rx)
+        conv_1, conv_2 = self._block[1], self._block[3]
+        s1, s2 = getattr(conv_1.weight, "model_shard", None), getattr(conv_2.weight, "model_shard", None)
+        if s1 is not None and s2 is not None and s1.dim == 0 and s2.dim == 1:
+            # the Megatron pair: conv_1's output channels stay split, conv_2 sums them
+            h = conv_1.sharded_forward(rx, leave=False)
+            h = conv_2.sharded_forward(F.relu(h), enter=False)
+        else:
+            h = self._block[1:](rx)
         return (rx if self.compat_inplace_relu else x) + h
 
 
@@ -80,12 +93,13 @@ class ResidualStack(nn.Module):
         compat_inplace_relu: bool = True,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
 
         def block():
             return Residual(num_hiddens, num_residual_hiddens, compat_init, compat_inplace_relu, generator,
-                            compute_dtype)
+                            compute_dtype, sequence_axis)
 
         if tied:
             self._layers = nn.ModuleList([block()] * num_residual_layers)

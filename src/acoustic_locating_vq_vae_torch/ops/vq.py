@@ -15,14 +15,28 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/ops/vq.py``:
   ``self.training``) from the batch's per-code counts and sums, with
   optional dead-code restart; the loss is ``beta * e_latent`` only.
 
-Under data parallelism (``process_group``, set by the trainer for its steps
-through :func:`global_statistics`) every rank quantizes its own rows and the
-statistics are the global batch's, as GSPMD makes them in the JAX package
-(``ops/vq.py:159-176, 212-220``): the EMA counts and sums are summed over the
-ranks before the decay, the perplexity is taken from the global code counts,
-and a dead code k restarts from global row ``k mod N_global`` (the ranks'
-blocks in rank order), so the codebook and the EMA buffers stay bitwise equal
-on every rank.
+On a process mesh (``mesh``, set by the trainer for its steps through
+:func:`global_statistics`) every rank quantizes its own rows and the
+statistics are the global batch's, as GSPMD and the JAX quantizer's
+``sequence_axis`` make them (``ops/vq.py:91-95, 145-219``): the EMA counts
+and sums are summed over the data and sequence axes before the decay, the
+perplexity is taken from the code counts summed over both; a dead code k
+restarts from global row ``k mod N_global`` of the data axis (the ranks'
+blocks in rank order) and, on a sequence axis, from the mean over the time
+shards of each shard's such row (JAX ``:186-190``), so the codebook and the
+EMA buffers stay bitwise equal on every rank. The loss is the rank's own mean
+over its rows: the trainer averages losses and gradients over the axes.
+
+A codebook split by rows over the mesh's model axis (``parallel/tensor.py``,
+JAX ``sharding_rules.py:33-34``) assigns in three steps that keep the rule
+"first index on exact ties" (:class:`_ShardedAssign`): each rank finds its
+block's winner and that winner's score (:func:`vq_nearest_scored`, the same
+kernel), the ranks' (score, global index) pairs are merged in coordinate
+order, the least score winning and an equal score going to the lower index
+(:func:`merge_nearest`), and each row is read from the rank that owns its
+code and summed over the group. The kernel's score of a code does not depend
+on how the codebook is split, nor does its row norm (:func:`code_norms`, the
+norm of every path), so the merged ids are the unsplit kernel's.
 
 Where the work runs follows the tensor alone: a CUDA tensor goes to the
 hand-written kernels (``ops/vq_cuda.py``: ``csrc/vq_nearest.cu`` for the
@@ -40,7 +54,6 @@ import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -50,12 +63,30 @@ from .vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cu
 # the assignment's operator, in the package's own namespace: an exported
 # localizer names it, and loading one needs only this module imported
 VQ_NEAREST_OP = "acoustic_locating_vq_vae_torch::vq_nearest"
+# the same kernel with each row's winning score, for a codebook split over ranks
+VQ_NEAREST_SCORED_OP = "acoustic_locating_vq_vae_torch::vq_nearest_scored"
 
 __all__ = [
-    "VectorQuantizer", "VQOutput", "VQ_NEAREST_OP", "vq_nearest", "nearest_indices", "nearest_codebook", "assign",
+    "VectorQuantizer", "VQOutput", "VQ_NEAREST_OP", "VQ_NEAREST_SCORED_OP", "vq_nearest", "vq_nearest_scored",
+    "code_norms", "nearest_indices", "nearest_scored", "merge_nearest", "nearest_codebook", "assign",
     "codebook_grad", "codebook_stats", "codebook_grad_plain", "codebook_stats_plain",
     "perplexity_from_indices", "global_statistics",
 ]
+
+
+def code_norms(codebook: torch.Tensor) -> torch.Tensor:
+    """The codebook's squared row norms ``||e_k||^2`` (K,), summed as a
+    pairwise tree over the features whose shape depends on D alone (odd
+    widths padded with a zero). Each step is an elementwise IEEE product or
+    sum, so a code's norm is bitwise the same in any codebook it is part of
+    and on either device: a codebook split by rows over ranks gives every code
+    the unsplit codebook's norm, where a row-sum reduction's order follows K."""
+    s = codebook * codebook
+    while s.shape[1] > 1:
+        if s.shape[1] % 2:
+            s = F.pad(s, (0, 1))
+        s = s[:, 0::2] + s[:, 1::2]
+    return s[:, 0]
 
 
 def nearest_indices(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
@@ -65,11 +96,33 @@ def nearest_indices(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tens
     return torch.argmin(e2 - 2.0 * (flat_x @ codebook.T), dim=1)
 
 
+def nearest_scored(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel with its second output: ``(indices,
+    scores)``, the :func:`nearest_indices` ids and each row's score at that
+    id, ``e2[k] - 2 x . e_k``."""
+    scores = e2 - 2.0 * (flat_x @ codebook.T)
+    indices = torch.argmin(scores, dim=1)
+    return indices, scores.gather(1, indices[:, None])[:, 0]
+
+
+def merge_nearest(scores: torch.Tensor, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The winners of a codebook split by rows: ``scores`` and ``ids`` are
+    ``(S, N)``, row s the winners of block s (global code ids, the blocks in
+    ascending code order). Per column, the least score wins and an equal score
+    keeps the earlier block, whose ids are lower: the first index on exact
+    ties, as one unsplit argmin gives it. Returns ``(score, id)``, ``(N,)``."""
+    best, bid = scores[0], ids[0]
+    for s in range(1, scores.shape[0]):
+        better = scores[s] < best
+        best = torch.where(better, scores[s], best)
+        bid = torch.where(better, ids[s], bid)
+    return best, bid
+
+
 def nearest_codebook(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain nearest-neighbour assignment: (N, D) x (K, D) -> (indices (N,)
     int64, quantized (N, D))."""
-    e2 = torch.sum(codebook * codebook, dim=1)
-    indices = nearest_indices(flat_x, codebook, e2)
+    indices = nearest_indices(flat_x, codebook, code_norms(codebook))
     return indices, codebook.index_select(0, indices)
 
 
@@ -94,12 +147,34 @@ def vq_nearest(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 def _vq_nearest_cuda(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     cb = codebook.contiguous()
     # the module's name is read at each call, so a wrapper put in its place (a launch counter) is the one called
-    return nearest_indices_cuda(flat_x.contiguous(), cb, torch.sum(cb * cb, dim=1))
+    return nearest_indices_cuda(flat_x.contiguous(), cb, code_norms(cb))[0]
 
 
 @vq_nearest.register_fake
 def _vq_nearest_fake(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return flat_x.new_empty((flat_x.shape[0],), dtype=torch.int32)
+
+
+@torch.library.custom_op(VQ_NEAREST_SCORED_OP, mutates_args=(), device_types="cpu")
+def vq_nearest_scored(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`vq_nearest` with its second output: int32 ids ``(N,)`` and each
+    row's winning float32 score ``(N,)``. On the CPU the plain version
+    (:func:`nearest_scored`); on the card the same ``csrc/vq_nearest.cu``
+    kernel, whose score output this is."""
+    indices, scores = nearest_scored(flat_x, codebook, code_norms(codebook))
+    return indices.to(torch.int32), scores
+
+
+@vq_nearest_scored.register_kernel("cuda")
+def _vq_nearest_scored_cuda(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    cb = codebook.contiguous()
+    return nearest_indices_cuda(flat_x.contiguous(), cb, code_norms(cb))
+
+
+@vq_nearest_scored.register_fake
+def _vq_nearest_scored_fake(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    n = flat_x.shape[0]
+    return flat_x.new_empty((n,), dtype=torch.int32), flat_x.new_empty((n,), dtype=torch.float32)
 
 
 def _assign_indices(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -163,22 +238,92 @@ class _Assign(torch.autograd.Function):
 def assign(flat_x: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(indices (N,) int32, quantized (N, D)): :func:`nearest_codebook` for a
     CPU tensor, the CUDA kernel for a CUDA tensor; raises for any other
-    device. Differentiable in ``codebook`` only."""
+    device. Differentiable in ``codebook`` only. A codebook parameter split
+    over a model axis (its ``model_shard``) assigns over the whole codebook
+    (:class:`_ShardedAssign`)."""
+    shard = getattr(codebook, "model_shard", None)
+    if shard is not None:
+        return _ShardedAssign.apply(flat_x, codebook, shard)
     return _Assign.apply(flat_x, codebook)
 
 
-def perplexity_from_indices(indices: torch.Tensor, num_embeddings: int, group=None) -> torch.Tensor:
+def _owned(indices: torch.Tensor, shard) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(whether this rank's block holds each global code id, the id within
+    the block, 0 where it does not)."""
+    local = indices.long() - shard.lo
+    own = (local >= 0) & (local < shard.block)
+    return own, torch.where(own, local, torch.zeros_like(local))
+
+
+def _sharded_rows(codebook: torch.Tensor, indices: torch.Tensor, shard) -> torch.Tensor:
+    """This rank's block's rows of the codes it owns, zero elsewhere: the
+    rank's term of the sum over the model group that reads every row."""
+    own, local = _owned(indices, shard)
+    rows = codebook.index_select(0, local)
+    return torch.where(own[:, None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
+class _ShardedAssign(torch.autograd.Function):
+    """:class:`_Assign` for a codebook split by rows over a model axis: the
+    block's winners with their scores, merged over the group in coordinate
+    order (:func:`merge_nearest`), then each row read from its owner and
+    summed over the group. The backward gives the block the gradient of the
+    rows it owns."""
+
+    @staticmethod
+    def forward(ctx, flat_x, codebook, shard):
+        _device_type(flat_x)
+        ids, scores = vq_nearest_scored(flat_x, codebook)
+        mesh = shard.mesh
+        scores = mesh.gather_rows(scores, "model")
+        ids = mesh.gather_rows(ids.long() + shard.lo, "model")
+        indices = merge_nearest(scores, ids)[1].to(torch.int32)
+        own, local = _owned(indices, shard)
+        quantized = mesh.all_reduce_(_sharded_rows(codebook, indices, shard), axis="model")
+        ctx.save_for_backward(own, local.to(torch.int32))
+        ctx.block = shard.block
+        ctx.mark_non_differentiable(indices)
+        return indices, quantized
+
+    @staticmethod
+    def backward(ctx, _, grad_q):
+        own, local = ctx.saved_tensors
+        d_cb = None
+        if ctx.needs_input_grad[1]:
+            g = torch.where(own[:, None], grad_q, torch.zeros((), dtype=grad_q.dtype, device=grad_q.device))
+            d_cb = codebook_grad(local, g, ctx.block)
+        return None, d_cb, None
+
+
+def _reduces(mesh, seq: bool) -> bool:
+    """Whether statistics are summed over ``mesh``: over its data axis, and
+    with ``seq`` over its sequence axis."""
+    return mesh is not None and (mesh.group is not None or (seq and mesh.seq_group is not None))
+
+
+def _reduce_counts(counts: torch.Tensor, mesh, seq: bool) -> bool:
+    """Sum ``counts`` over the data axis of ``mesh`` (and with ``seq`` its
+    sequence axis) in place; whether there was anything to sum over."""
+    if not _reduces(mesh, seq):
+        return False
+    mesh.all_reduce_(counts)
+    if seq:
+        mesh.all_reduce_(counts, axis="seq")
+    return True
+
+
+def perplexity_from_indices(indices: torch.Tensor, num_embeddings: int, mesh=None, seq: bool = True) -> torch.Tensor:
     """exp(entropy of code usage) over the given assignments
-    (vector_quantizer.py:55-56); with a process ``group``, over every rank's
-    assignments (the code counts summed over the ranks, JAX ops/vq.py:212-220)."""
+    (vector_quantizer.py:55-56); on a process ``mesh``, over every rank's
+    assignments on the data axis and, with ``seq``, on the sequence axis (the
+    code counts summed over them, JAX ops/vq.py:212-220)."""
     # int64 in: bincount's count dtype is int64 on every device and in every torch version's fake
     # kernel (some give int32 for int32 ids), so an exported graph's dtype checks hold when it runs
     flat = indices.reshape(-1).long()
     counts = torch.bincount(flat, minlength=num_embeddings).to(torch.float32)
-    if group is None:
+    if not _reduce_counts(counts, mesh, seq):
         avg_probs = counts / flat.shape[0]
     else:
-        dist.all_reduce(counts, group=group)
         n = counts.sum()  # the global rows, exact: an integer below 2**24
         # the arithmetic of the line above, so that a world of one is bitwise one device: a CUDA tensor divided
         # by a Python number is multiplied by the number's float32 reciprocal, a CPU tensor is divided by it
@@ -186,40 +331,45 @@ def perplexity_from_indices(indices: torch.Tensor, num_embeddings: int, group=No
     return torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
 
 
-def _global_seed_rows(flat: torch.Tensor, k: int, group) -> torch.Tensor:
-    """Row ``i mod N_global`` of the global batch for each code ``i``, the
-    ranks' blocks of ``flat`` laid end to end in rank order: each rank writes
-    the rows it owns into a zero-filled ``(k, D)`` buffer, and the buffers
-    are summed (adding zeros is exact). Nothing waits for the device."""
-    rank, world = dist.get_rank(group), dist.get_world_size(group)
+def _seed_rows(flat: torch.Tensor, k: int, mesh, seq: bool) -> torch.Tensor:
+    """The rows dead codes restart from: row ``i mod N_global`` of the data
+    axis's global batch for each code ``i`` (the ranks' blocks of ``flat``
+    laid end to end in data order; each rank writes the rows it owns into a
+    zero-filled ``(k, D)`` buffer, and the buffers are summed, adding zeros
+    exactly), then on a sequence axis the mean of those rows over the time
+    shards (JAX ``ops/vq.py:186-190``). Nothing waits for the device."""
     n_local = flat.shape[0]
-    sizes = torch.zeros(world, dtype=torch.int64, device=flat.device)
-    sizes[rank] = n_local
-    dist.all_reduce(sizes, group=group)
-    offset = torch.sum(sizes[:rank])
-    local = torch.arange(k, device=flat.device) % torch.sum(sizes) - offset
-    own = (local >= 0) & (local < n_local)
-    rows = torch.where(own[:, None], flat[local.clamp(0, n_local - 1)], torch.zeros((), dtype=flat.dtype,
-                                                                                      device=flat.device))
-    dist.all_reduce(rows, group=group)
+    codes = torch.arange(k, device=flat.device)
+    if mesh is None or mesh.group is None:
+        rows = flat[codes % n_local]
+    else:
+        sizes = mesh.gather_rows(torch.tensor(n_local, dtype=torch.int64, device=flat.device))
+        local = codes % torch.sum(sizes) - torch.sum(sizes[:mesh.rank])
+        own = (local >= 0) & (local < n_local)
+        rows = torch.where(own[:, None], flat[local.clamp(0, n_local - 1)],
+                           torch.zeros((), dtype=flat.dtype, device=flat.device))
+        mesh.all_reduce_(rows)
+    if seq and mesh is not None and mesh.seq_group is not None:
+        rows = mesh.all_reduce_(rows, axis="seq") / mesh.seq_size
     return rows
 
 
 @contextlib.contextmanager
-def global_statistics(module: nn.Module, group):
+def global_statistics(module: nn.Module, mesh):
     """While open, every :class:`VectorQuantizer` in ``module`` reduces its
-    statistics over the process ``group`` (None: the rank's own rows); the
-    previous groups come back on exit. The trainer opens it around its steps
-    only, so that building a cache or serving from its model stays local."""
+    statistics over the data and sequence axes of ``mesh`` (None: the rank's
+    own rows); the previous meshes come back on exit. The trainer opens it
+    around its steps only, so that building a cache or serving from its model
+    stays local."""
     vqs = [m for m in module.modules() if isinstance(m, VectorQuantizer)]
-    saved = [m.process_group for m in vqs]
+    saved = [m.mesh for m in vqs]
     for m in vqs:
-        m.process_group = group
+        m.mesh = mesh
     try:
         yield
     finally:
         for m, g in zip(vqs, saved):
-            m.process_group = g
+            m.mesh = g
 
 
 EMA_EPS = 1e-5  # Laplace smoothing of the EMA counts (JAX ops/vq.py ema_eps)
@@ -237,8 +387,11 @@ class VectorQuantizer(nn.Module):
     """Vector quantizer. The codebook is ``_embedding.weight`` (K, D), the
     reference's key, drawn U(-1/K, 1/K): a parameter in gradient mode, a
     buffer (beside ``ema_counts`` and ``ema_sums``) in EMA mode.
-    ``process_group`` reduces the statistics over the ranks of a data-parallel
-    group (see the module docstring and :func:`global_statistics`)."""
+    ``mesh`` reduces the statistics over the data axis of a process mesh,
+    and over its sequence axis where the quantizer is built with a
+    ``sequence_axis`` (see the module docstring and
+    :func:`global_statistics`); a gradient-mode codebook may be split over its
+    model axis (``parallel.shard_model``)."""
 
     def __init__(
         self,
@@ -249,10 +402,11 @@ class VectorQuantizer(nn.Module):
         ema: bool = False,
         ema_decay: float = 0.99,
         ema_reset_threshold: float = 0.0,
-        process_group=None,
+        sequence_axis: Optional[str] = None,
     ):
         super().__init__()
-        self.process_group = process_group
+        self.mesh = None  # set while a step runs on a process mesh (global_statistics)
+        self.sequence_axis = sequence_axis
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.commitment_cost = commitment_cost
@@ -269,19 +423,27 @@ class VectorQuantizer(nn.Module):
             self._embedding.weight = nn.Parameter(weight)
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:
-        """Codebook rows for stored code ids (the inverse of the assignment)."""
-        rows = self._embedding.weight.index_select(0, indices.reshape(-1))
+        """Codebook rows for stored code ids (the inverse of the assignment);
+        a codebook split over a model axis reads each row from its owner."""
+        weight = self._embedding.weight
+        shard = getattr(weight, "model_shard", None)
+        if shard is None:
+            rows = weight.index_select(0, indices.reshape(-1))
+        else:
+            from ..parallel.tensor import model_reduce
+
+            rows = model_reduce(_sharded_rows(weight, indices.reshape(-1), shard), shard.mesh)
         return rows.reshape(*indices.shape, self.embedding_dim)
 
     @torch.no_grad()
     def _ema_update(self, indices: torch.Tensor, flat: torch.Tensor) -> None:
         """The JAX ``ops/vq.py:158-201`` update, in place on the buffers."""
-        k, group = self.num_embeddings, self.process_group
+        k, mesh, seq = self.num_embeddings, self.mesh, self.sequence_axis is not None
         counts, sums = codebook_stats(indices, flat, k)
-        if group is not None:
-            # the global batch's statistics: one sum over the ranks of counts and sums together
+        if _reduces(mesh, seq):
+            # the global batch's statistics: one sum an axis of counts and sums together
             both = torch.cat([counts[:, None], sums], dim=1)
-            dist.all_reduce(both, group=group)
+            _reduce_counts(both, mesh, seq)
             counts, sums = both[:, 0], both[:, 1:]
         decay = self.ema_decay
         new_counts = decay * self.ema_counts + (1 - decay) * counts
@@ -289,10 +451,7 @@ class VectorQuantizer(nn.Module):
         if self.ema_reset_threshold > 0.0:
             # dead codes restart from batch rows, code id mod rows: reproducible
             dead = new_counts < self.ema_reset_threshold
-            if group is None:
-                seed_rows = flat[torch.arange(k, device=flat.device) % flat.shape[0]]
-            else:
-                seed_rows = _global_seed_rows(flat, k, group)
+            seed_rows = _seed_rows(flat, k, mesh, seq)
             new_sums = torch.where(dead[:, None], seed_rows, new_sums)
             new_counts = torch.where(dead, torch.ones_like(new_counts), new_counts)
         n = torch.sum(new_counts)
@@ -320,7 +479,7 @@ class VectorQuantizer(nn.Module):
 
         quantized = quantized.reshape(inputs.shape)
         ste = inputs + (quantized - inputs).detach()
-        perplexity = perplexity_from_indices(indices, self.num_embeddings, self.process_group)
+        perplexity = perplexity_from_indices(indices, self.num_embeddings, self.mesh, self.sequence_axis is not None)
         encodings = (
             F.one_hot(indices.long(), self.num_embeddings).to(flat.dtype) if need_encodings else None
         )

@@ -2,10 +2,11 @@
 
 * ``nearest_indices_cuda`` (``csrc/vq_nearest.cu``): counterpart of the
   Pallas ``_fwd_kernel`` / ``_fwd_impl`` in
-  ``acoustic_locating_vq_vae_tpu/ops/vq_pallas.py``. The kernel returns only
-  the int32 code ids; ``ops/vq.py`` adds the row norms before the call and the
-  row gather after it, as ``_fwd_impl`` does around its ``pallas_call``. Plain
-  version: ``ops.vq.nearest_indices``.
+  ``acoustic_locating_vq_vae_tpu/ops/vq_pallas.py``. The kernel returns the
+  int32 code ids and each row's winning float32 score (which a codebook split
+  over ranks merges across its shards); ``ops/vq.py`` adds the row norms
+  before the call and the row gather after it, as ``_fwd_impl`` does around
+  its ``pallas_call``. Plain version: ``ops.vq.nearest_scored``.
 * ``codebook_grad_cuda`` and ``codebook_stats_cuda``
   (``csrc/vq_codebook_accum.cu``): counterparts of the Pallas ``_bwd_kernel``
   as ``_dcb_impl`` (the codebook gradient) and ``codebook_stats_pallas`` (the
@@ -34,7 +35,7 @@ def _launcher():
     fn = library("vq_nearest.cu").vq_nearest_launch
     # pointers and the stream as c_void_p: an undeclared argument would be
     # passed as a 32-bit int and cut the address
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -78,23 +79,28 @@ def _check(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tensor) -> No
         raise ValueError("N and K must fit in int32")
 
 
-def nearest_indices_cuda(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
-    """``argmin_k (e2[k] - 2 flat_x[n] . codebook[k])`` per row, first index on
-    ties, as int32 ``(N,)``. ``e2`` holds the codebook's squared row norms.
-    Launches on the current stream and does not synchronise."""
+def nearest_indices_cuda(flat_x: torch.Tensor, codebook: torch.Tensor, e2: torch.Tensor):
+    """``(idx, score)``: ``argmin_k (e2[k] - 2 flat_x[n] . codebook[k])`` per
+    row, first index on ties, as int32 ``(N,)``, and that least score as
+    float32 ``(N,)`` (+inf on a row whose every score is NaN or +inf, which
+    takes code 0). ``e2`` holds the codebook's squared row norms. A code's
+    score does not depend on how the codebook is split: the same rows give
+    bitwise the same scores in any codebook they are part of. Launches on the
+    current stream and does not synchronise."""
     _check(flat_x, codebook, e2)
     n, d = flat_x.shape
     k = codebook.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=flat_x.device)
+    score = torch.empty(n, dtype=torch.float32, device=flat_x.device)
     with _on(flat_x.device):
         err = _launcher()(
-            flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(),
+            flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(), score.data_ptr(),
             n, k, d, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"vq_nearest kernel launch failed with CUDA error {err}")
     nearest_indices_cuda.launches += 1
-    return idx
+    return idx, score
 
 
 nearest_indices_cuda.launches = 0

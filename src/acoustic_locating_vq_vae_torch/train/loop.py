@@ -45,7 +45,7 @@ checkpoints (:817-918):
   raises :class:`Preempted`; ``fit(resume=True)`` continues from the newest
   periodic checkpoint;
 * ``profile_dir`` traces steady-state steps with ``torch.profiler``;
-* with ``data_parallel`` (a :class:`..parallel.DataParallel` handle; JAX
+* with ``mesh`` (a :class:`..parallel.DataParallel` handle; JAX
   :196-212, :359-420) every rank trains on its block of the global batch:
   it holds its contiguous block of each resident set and draws ``B / W``
   rows of it (stratified sampling, its sampling generator seeded from
@@ -67,7 +67,20 @@ checkpoints (:817-918):
   algorithm; nothing falls back to float32), while the parameters, Adam's
   state, the checkpoints, the cache's codes and the losses stay float32.
 
-Sequence and tensor sharding and host-staged data come in later slices.
+* with a process ``mesh`` (``parallel.make_mesh``; JAX :143, :197-209,
+  :280-290, :317-356) the data axis is the data parallelism above, its data
+  coordinate folded into the sampling and synthesis seeds, so every model and
+  sequence rank of one data row draws the same batch; a task with a
+  ``sequence_axis`` runs each step on the rank's window of the time axis of
+  every 3-D batch field, its convs exchanging halos (``parallel/sequence.py``),
+  and the gradients and metrics are averaged over that axis as well (the
+  frozen-latent cache is not used there, as in JAX); with ``model_parallel``
+  the large parameters are split over the model axis by the partition rules
+  (``parallel/tensor.py``), each rank holding its block of them and of Adam's
+  state. A checkpoint holds whole tensors whatever the split, so a store
+  written under one model axis size resumes under another.
+
+Host-staged data comes in a later slice.
 """
 
 from __future__ import annotations
@@ -84,13 +97,17 @@ import torch
 from ..data.dataset import sample_without_replacement
 from ..data.synth import SampleBatch, synthesize_batch
 from ..ops.jitter import Jitter
+from ..models.conv_vqvae import sequence_sharding
 from ..ops.vq import global_statistics
-from ..parallel.dp_step import global_rows, make_dp_train_step, reduce_metrics
-from ..parallel.mesh import DataParallel, check_replicated, rank_seed, shard_batch
+from ..parallel.dp_step import make_dp_train_step, reduce_metrics, step_weight
+from ..parallel.mesh import AXES, DataParallel, check_replicated, rank_seed, shard_batch
+from ..parallel.tensor import (
+    full_optimizer_state, full_state_dict, shard_model, shard_optimizer_state, shard_state_dict,
+)
 from ..utils.checkpoint import StageStore
 from ..utils.device import deterministic_convs, full_fp32, resolve_device
 from ..utils.profiling import trace
-from .tasks import Task
+from .tasks import Task, resolved_vq_flatten
 
 Cache = Dict[str, torch.Tensor]
 
@@ -111,7 +128,7 @@ def checkpoint_metadata(task, final: bool) -> dict:
         if hasattr(task, attr):
             v = getattr(task, attr)
             if attr == "compat_vq_flatten":
-                v = True if v is None else bool(v)  # as the task's build_model resolves it
+                v = resolved_vq_flatten(task)  # as the task's build_model resolves it
             meta[attr] = v
     return meta
 
@@ -204,11 +221,14 @@ class Trainer:
     ones (finals are kept). ``profile_dir`` traces steps ``start + 2`` to
     ``start + 7`` of :meth:`fit` into ``<profile_dir>/<task name>.json``.
 
-    ``data_parallel`` trains this rank's share of every batch in a
-    data-parallel group (see the module docstring); the trainer runs on the
-    handle's device (``device`` must name the same type), only rank 0 prints,
-    profiles and writes checkpoints, and a handle without a group
-    (``parallel.local_mesh``) is the same as none."""
+    ``mesh`` (a handle of ``parallel.init_data_parallel`` or
+    ``parallel.make_mesh``) trains this rank's share of every batch over its
+    data axis (see the module docstring), shards the time axis of a task with
+    a ``sequence_axis`` over its sequence axis, and with ``model_parallel``
+    splits the large parameters over its model axis; the trainer runs on the
+    handle's device (``device`` must name the same type), only the mesh's
+    first rank prints, profiles and writes checkpoints, and a handle without a
+    group (``parallel.local_mesh``) is the same as none."""
 
     def __init__(
         self,
@@ -225,10 +245,15 @@ class Trainer:
         profile_dir: Optional[str] = None,
         on_the_fly: bool = False,
         synth_kwargs: Optional[Mapping] = None,
-        data_parallel: Optional[DataParallel] = None,
+        mesh: Optional[DataParallel] = None,
+        model_parallel: bool = False,
     ):
         self.task = task
-        self.dp = data_parallel if data_parallel is not None and data_parallel.distributed else None
+        self.dp = mesh if mesh is not None and mesh.distributed else None
+        # the sequence axis comes from the task (JAX loop.py:207-209)
+        self.seq_axis = getattr(task, "sequence_axis", None)
+        if self.seq_axis is not None and self.seq_axis not in AXES:
+            raise ValueError(f"mesh has no axis {self.seq_axis!r} for sequence parallelism")
         rank, self.world_size = (self.dp.rank, self.dp.world_size) if self.dp else (0, 1)
         if self.dp is not None:
             if torch.device(device).type != self.dp.device.type:
@@ -239,10 +264,6 @@ class Trainer:
         self.set_synthesis(synth_kwargs)
         self.frozen_rir = task.build_frozen(composite_params, self.device)
         self.model = task.build_model(torch.Generator().manual_seed(seed)).to(self.device).train()
-        # model.parameters() yields a tied residual block once, so Adam's
-        # state, keyed by parameter order, is the same for every trainer of
-        # the task
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=task.learning_rate)
         # the sampling and synthesis streams fold the rank in (rank 0's are the single-process ones); the
         # jitter decisions are shared by every rank, as the batch-shared jitter needs
         self.sample_generator = torch.Generator().manual_seed(rank_seed(seed + 1, rank))
@@ -253,24 +274,54 @@ class Trainer:
         self.step_count = 0  # steps taken, eval steps included (the JAX state.step)
         self.log_every = log_every
         self.val_replaces_train = val_replaces_train
-        self.verbose = verbose and rank == 0
-        self.cache_frozen = cache_frozen
+        lead = self.dp is None or self.dp.lead
+        self.verbose = verbose and lead
+        # a time shard's frozen branches are not cached (the JAX trainer ignores the cache there too)
+        self.cache_frozen = cache_frozen and not self._seq_sharded
         self.store = StageStore(checkpoint_dir) if checkpoint_dir else None
         self.keep_checkpoints = int(keep_checkpoints)
-        self.profile_dir = profile_dir if rank == 0 else None
+        self.profile_dir = profile_dir if lead else None
         if self.dp is not None:
-            # the explicit-collective step (parallel/dp_step.py), on a (batch, cache rows) pair
-            self._dp_step = make_dp_train_step(lambda bc: self._loss(bc[0], True, bc[1]), self.optimizer, self.dp)
-            if any(m.per_batch for m in self.model.modules() if isinstance(m, Jitter)):
+            if self.world_size > 1 and any(m.per_batch for m in self.model.modules() if isinstance(m, Jitter)):
                 raise NotImplementedError("per-sample jitter under data parallelism would draw each rank's decisions "
                                           "apart from the global batch's; the compat batch-shared jitter is supported")
             check_replicated(self.model, self.dp)
             if self.frozen_rir is not None:
                 check_replicated(self.frozen_rir, self.dp, "frozen weights")
+        if model_parallel:
+            shard_model(self.model, self.dp)
+        # model.parameters() yields a tied residual block once, so Adam's
+        # state, keyed by parameter order, is the same for every trainer of
+        # the task
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=task.learning_rate)
+        if self.dp is not None:
+            # the explicit-collective step (parallel/dp_step.py), on a (batch, cache rows) pair
+            self._dp_step = make_dp_train_step(lambda bc: self._loss(bc[0], True, bc[1]), self.optimizer, self.dp)
         # set by the SIGTERM handler fit() installs, or request_preemption()
         self._preempt_requested = False
         # while fit runs: the rows of each set it holds (its speech_spec's id) -> the whole set's rows
         self._held: Dict[int, int] = {}
+
+    @property
+    def _seq_sharded(self) -> bool:
+        """Whether steps run on time shards: the task names a sequence axis
+        and the mesh's has more than one rank."""
+        return self.seq_axis is not None and self.dp is not None and self.dp.axis(self.seq_axis)[2] > 1
+
+    def _time_window(self, batch: SampleBatch) -> SampleBatch:
+        """This rank's window of the time axis (the last) of every 3-D field
+        of ``batch``, the JAX ``P("data", None, "seq")`` layout."""
+        _, s, n = self.dp.axis(self.seq_axis)
+
+        def window(a):
+            if a.dim() != 3:
+                return a
+            if a.shape[-1] % n:
+                raise ValueError(f"sequence length {a.shape[-1]} not divisible by {self.seq_axis}={n}")
+            per = a.shape[-1] // n
+            return a[..., s * per:(s + 1) * per]
+
+        return batch.map(window)
 
     def set_synthesis(self, synth_kwargs: Optional[Mapping]) -> None:
         """Set the on-the-fly synthesis options (``synth_kwargs`` of the
@@ -428,6 +479,18 @@ class Trainer:
     def _loss(self, batch: SampleBatch, train: bool, cache: Optional[Cache]):
         return self.task.step_loss(self.model, self.frozen_rir, batch, train, self.jitter_generator, cache)
 
+    def _step_context(self) -> contextlib.ExitStack:
+        """Full FP32, the deterministic pin and, on a mesh, the quantizers'
+        statistics over it and the time shards' mesh."""
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(full_fp32())
+        ctx.enter_context(deterministic_convs())
+        if self.dp is not None:
+            ctx.enter_context(global_statistics(self.model, self.dp))
+            if self.seq_axis is not None:
+                ctx.enter_context(sequence_sharding(self.model, self.dp))
+        return ctx
+
     def step(self, batch: SampleBatch, train: bool = True, cache: Optional[Cache] = None) -> Dict[str, torch.Tensor]:
         """One train step (loss, backward, Adam) or eval step on an already
         sampled batch, from its cache rows where given; returns the metrics
@@ -438,10 +501,13 @@ class Trainer:
         batch: the vector quantizers' statistics, the gradients (before Adam)
         and the metrics are reduced over the ranks, each rank weighted by its
         share of the global rows, so every rank returns the global batch's
-        metrics and takes the same update."""
+        metrics and takes the same update. On time shards (a task's
+        ``sequence_axis``) the step takes the rank's window of ``batch``'s time
+        axis, and averages over the sequence axis too."""
         dp = self.dp
-        stats = global_statistics(self.model, dp.group) if dp else contextlib.nullcontext()
-        with full_fp32(), deterministic_convs(), stats:
+        if self._seq_sharded:
+            batch = self._time_window(batch)
+        with self._step_context():
             if train and dp is not None:
                 metrics = self._dp_step((batch, cache), rows=int(batch.speech_spec.shape[0]))
             elif train:
@@ -455,9 +521,8 @@ class Trainer:
                     loss, metrics = self._loss(batch, False, cache)
                 metrics = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
                 if dp is not None:
-                    rows = int(batch.speech_spec.shape[0])
-                    metrics = reduce_metrics(metrics, dp, rows / global_rows(rows, dp, self.device),
-                                             [k for k in metrics if k.endswith("perplexity")])
+                    weight = step_weight(int(batch.speech_spec.shape[0]), dp, self.device)
+                    metrics = reduce_metrics(metrics, dp, weight, [k for k in metrics if k.endswith("perplexity")])
         self.step_count += 1
         return metrics
 
@@ -597,11 +662,13 @@ class Trainer:
         evaluation-relevant configuration as metadata; then retire all but
         the newest ``keep_checkpoints`` periodic checkpoints of the task.
         Under data parallelism every rank calls it (the generators' states
-        are gathered) and rank 0 alone writes; the call returns once the
-        checkpoint is in the store."""
+        and the blocks of split parameters are gathered) and the mesh's first
+        rank alone writes; the call returns once the checkpoint is in the
+        store."""
         tree = {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            # whole tensors, whatever the model axis splits: a store resumes under another split
+            "model": full_state_dict(self.model),
+            "optimizer": full_optimizer_state(self.model, self.optimizer),
             "step": self.step_count,
             "sample_generator": self.sample_generator.get_state(),
             "jitter_generator": self.jitter_generator.get_state(),
@@ -614,7 +681,7 @@ class Trainer:
             if self.on_the_fly:
                 ranks["synth_generators"] = self._gather_states(self.synth_generator)
             tree["data_parallel"] = ranks
-        if self.dp is None or self.dp.rank == 0:
+        if self.dp is None or self.dp.lead:
             self.store.save_stage(tag, tree, step=self.step_count, metadata=checkpoint_metadata(self.task, final))
             if not final and self.keep_checkpoints > 0:
                 prefix = f"{self.task.name}_"
@@ -627,6 +694,16 @@ class Trainer:
                     self.store.delete_stage(t)
         if self.dp is not None:
             self.dp.barrier()
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with whole tensors (split parameters
+        gathered over the model axis; every rank of it must call this)."""
+        return full_state_dict(self.model)
+
+    def load_state_dict(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Load a whole-tensor state dict into the model (each split
+        parameter takes its rank's block)."""
+        self.model.load_state_dict(shard_state_dict(self.model, state))
 
     def load_stage_params(self, name: str) -> Dict[str, torch.Tensor]:
         """The model state dict of stage ``name`` in the store (on the CPU)."""
@@ -660,8 +737,8 @@ class Trainer:
             raise ValueError(f"checkpoint {best[0]!r} was written by {saved_world} data-parallel ranks; resume it "
                              f"with the same world size, not {self.world_size} (each rank's batches continue from "
                              "its own generators)")
-        self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
+        self.model.load_state_dict(shard_state_dict(self.model, tree["model"]))
+        self.optimizer.load_state_dict(shard_optimizer_state(self.model, self.optimizer, tree["optimizer"]))
         self.jitter_generator.set_state(tree["jitter_generator"])
         if self.dp is not None and ranks:
             # a row of its own storage: set_state reads a state from the start of the storage

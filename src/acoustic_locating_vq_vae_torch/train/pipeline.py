@@ -14,11 +14,14 @@ train_location.py:38 reads the composite for frozen latents), and the joint
 stage's bank-pretrain and exact-polish recipe (:func:`fit_joint_recipe`).
 
 ``compute_dtype`` goes to every stage's task, the joint stage's included
-(JAX :211, :271, :416). ``data_parallel`` is the data axis of the JAX
-``mesh`` (:201-232): every stage's trainer trains its rank's share of each
-batch, and rank 0 alone writes the store. Not ported here: the model and
-sequence axes and ``sequence_axis`` (the next slice) and ``vq_backend`` (a
-CUDA tensor always runs the port's kernel, a CPU tensor its plain version).
+(JAX :211, :271, :416). ``mesh`` (a :class:`..parallel.DataParallel` handle)
+is the JAX ``mesh`` (:201-232): every stage's trainer trains its rank's share
+of each batch, and the mesh's first rank alone writes the store;
+``sequence_axis`` shards the time axis of the speech, echoed and finetune
+stages (JAX :222, :280) and ``model_parallel`` splits every stage's large
+parameters over the model axis. Handoffs pass whole tensors. Not ported:
+``vq_backend`` (a CUDA tensor always runs the port's kernel, a CPU tensor its
+plain version).
 """
 
 from __future__ import annotations
@@ -78,8 +81,8 @@ def run_stage(
     trainer = Trainer(task, seed=seed, checkpoint_dir=store_dir, composite_params=composite_params, **trainer_kwargs)
     if initial_params is not None:
         if callable(initial_params):
-            initial_params = initial_params(trainer.model.state_dict())
-        trainer.model.load_state_dict(initial_params)
+            initial_params = initial_params(trainer.state_dict())
+        trainer.load_state_dict(initial_params)
     history = trainer.fit(train_data, val_data, num_updates=num_updates, resume=resume)
     return trainer, history
 
@@ -141,7 +144,7 @@ def fit_joint_recipe(
     if (exact_synth_kwargs or {}).get("rir_bank") is not None:
         raise ValueError("exact_synth_kwargs must not carry a rir_bank")
     trainer = Trainer(task, seed=seed, checkpoint_dir=store_dir, **trainer_kwargs)
-    trainer.model.load_state_dict(task.seed_params(trainer.model.state_dict(), composite_params))
+    trainer.load_state_dict(task.seed_params(trainer.state_dict(), composite_params))
     h1 = trainer.fit(train_data, val_data, num_updates=bank_updates, resume=resume, save_final=False)
     if store_dir:
         # the leg boundary as a periodic tag, so leg 2 resumes there even off the ckpt_every cadence
@@ -187,7 +190,9 @@ def run_pipeline(
     joint_bank_updates: Optional[int] = None,
     joint_exact_synth_kwargs: Optional[Dict] = None,
     joint_polish_bank_prob: float = 0.0,
-    data_parallel=None,
+    mesh=None,
+    model_parallel: bool = False,
+    sequence_axis: Optional[str] = None,
     **trainer_kwargs,
 ) -> Dict[str, Tuple[Dict[str, torch.Tensor], Optional[TrainHistory]]]:
     """Run the five stages, and the joint stage with ``joint_location``;
@@ -219,10 +224,15 @@ def run_pipeline(
     (``compat_vq_flatten=False``). Explicit keyword arguments override the
     preset field by field.
 
-    ``data_parallel`` (a :class:`..parallel.DataParallel` handle, every rank
-    calling with the same arguments and the whole sets) trains every stage
-    data-parallel (``Trainer(data_parallel=...)``); rank 0 alone writes the
-    store and prints, and every rank returns the same state dicts."""
+    ``mesh`` (a :class:`..parallel.DataParallel` handle, every rank calling
+    with the same arguments and the whole sets) trains every stage over the
+    mesh (``Trainer(mesh=...)``); the mesh's first rank alone writes the store
+    and prints, and every rank returns the same state dicts.
+    ``sequence_axis`` (``"seq"``) shards the time
+    axis of the speech, echoed and finetune stages (the RIR and location
+    stages have no long axis; an explicit compat VQ flatten raises there), and
+    ``model_parallel`` splits every stage's large parameters over its model
+    axis."""
     if preset not in ("compat", "fixed"):
         raise ValueError(f"unknown preset {preset!r}")
     fixed = preset == "fixed"
@@ -235,9 +245,12 @@ def run_pipeline(
     location_target_mode = location_target_mode or "normalized_angle"
     compat_vq_flatten = compat_vq_flatten if compat_vq_flatten is not None else not fixed
 
-    if data_parallel is not None:
-        trainer_kwargs["data_parallel"] = data_parallel
-    lead = data_parallel is None or data_parallel.rank == 0
+    if mesh is not None:
+        trainer_kwargs["mesh"] = mesh
+    if model_parallel:
+        trainer_kwargs["model_parallel"] = True
+    lead = mesh is None or mesh.lead
+    seq_kw = {"sequence_axis": sequence_axis} if sequence_axis is not None else {}
     updates = updates or {}
     results: Dict[str, Tuple[Dict[str, torch.Tensor], Optional[TrainHistory]]] = {}
     kw: Dict[str, Any] = dict(config=config, width_scale=width_scale, compat_vq_flatten=compat_vq_flatten,
@@ -285,19 +298,20 @@ def run_pipeline(
             return done
         trainer, history = run_stage(task, stage_seed(seed, index), train_data, val_data, store_dir,
                                      updates.get(task.name), initial, composite_params, resume, **trainer_kwargs)
-        results[task.name] = (trainer.model.state_dict(), history)
+        results[task.name] = (trainer.state_dict(), history)
         return results[task.name][0]
 
     # Stages 1 and 2: the two VQ-VAEs.
-    speech = stage(0, SpeechVQVAETask(**kw, vq_ema=vq_ema))
+    speech = stage(0, SpeechVQVAETask(**kw, vq_ema=vq_ema, **seq_kw))
     rir = stage(1, RirVQVAETask(**kw, vq_ema=vq_ema))
     # Stage 3: the composite with both grafted as its frozen branches (an EMA
     # donor's codebook becomes the frozen parameter, its statistics dropped).
     # No commitment anchor here: the branch latents get no gradient, so an
     # anchor would be the only gradient reaching the encoders and collapse them.
-    echoed = stage(2, EchoedSpeechTask(**kw), initial=lambda fresh: graft_pretrained(fresh, speech, rir))
+    echoed = stage(2, EchoedSpeechTask(**kw, **seq_kw), initial=lambda fresh: graft_pretrained(fresh, speech, rir))
     # Stage 4: the encoders fine-tuned, continuing from the composite.
-    finetune = stage(3, EncoderFinetuneTask(**kw, commitment_weight=commitment_weight), initial=lambda fresh: echoed)
+    finetune = stage(3, EncoderFinetuneTask(**kw, commitment_weight=commitment_weight, **seq_kw),
+                     initial=lambda fresh: echoed)
     # Stage 5: location regression over the frozen fine-tuned composite.
     stage(4, LocationTask(**kw, input_mode=location_input_mode, target_mode=location_target_mode),
           composite_params=finetune)
@@ -319,7 +333,7 @@ def run_pipeline(
             trainer, history = fit_joint_recipe(
                 joint, stage_seed(seed, 5), train_data, val_data, store_dir, finetune, joint_bank_updates,
                 updates.get(joint.name), joint_exact_synth_kwargs, resume, joint_polish_bank_prob, **trainer_kwargs)
-            results[joint.name] = (trainer.model.state_dict(), history)
+            results[joint.name] = (trainer.state_dict(), history)
         else:
             stage(5, joint, initial=lambda fresh: joint.seed_params(fresh, finetune))
     return results

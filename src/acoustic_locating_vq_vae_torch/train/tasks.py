@@ -23,8 +23,14 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/train/tasks.py``:
   the task's type at loop.py:245, :304 and :798).
 
 The port's tasks take a model and a batch (weights live in the modules, not
-in a parameter tree), and the stage handoff works on state dicts. Sequence
-sharding is not ported.
+in a parameter tree), and the stage handoff works on state dicts.
+
+``sequence_axis`` (JAX :142-168, :210-214, :263-298, :329-337, :671-674)
+names the mesh axis that shards the time axis of the speech, echoed and
+finetune stages (the trainer's mesh supplies it); it resolves the VQ flatten
+to the vectors one where ``compat_vq_flatten`` is None, and an explicit
+compat flatten raises in the model. The RIR and the two location stages refuse
+it: their conv length is the short frequency axis.
 
 Every stage takes ``compute_dtype`` (JAX :138, :203, :314, :428, :637):
 ``"float32"`` (the default) or ``"bfloat16"``, the compute dtype of its conv
@@ -169,12 +175,14 @@ class SpeechVQVAETask(Task):
     width_scale: float = 1.0  # <1 for smoke/test configs
     compute_dtype: str = "float32"  # "bfloat16": the conv stacks in bf16
     vq_ema: bool = False  # EMA codebook (option; gradient mode = reference parity)
-    # None resolves to the reference's memory-order flatten (no sequence sharding in the port)
+    # the mesh axis sharding the time axis (long-sequence training); implies the vectors VQ flatten
+    sequence_axis: Optional[str] = None
+    # None resolves to the reference's memory-order flatten, or to the vectors one under sequence_axis
     compat_vq_flatten: Optional[bool] = None
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
         return speech_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, vq_ema=self.vq_ema,
-                            compute_dtype=self.compute_dtype)
+                            compute_dtype=self.compute_dtype, sequence_axis=self.sequence_axis)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:
@@ -202,9 +210,15 @@ class RirVQVAETask(Task):
     width_scale: float = 1.0
     compute_dtype: str = "float32"
     vq_ema: bool = False
+    # present for symmetry but refused: the conv length is the 201-bin frequency axis (the transposed
+    # spectrogram) and the z-norm reduces over it, so a shard would normalise with its own statistics
+    sequence_axis: Optional[str] = None
     compat_vq_flatten: Optional[bool] = None  # None: the reference's memory-order flatten
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> ConvolutionalVQVAE:
+        if self.sequence_axis is not None:
+            raise ValueError("RirVQVAETask does not support sequence parallelism: its conv length is the short freq "
+                             "axis and its z-norm reduces over it; use it on the speech/echoed/finetune stages")
         return rir_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, decoder=True,
                          vq_ema=self.vq_ema, compute_dtype=self.compute_dtype)
 
@@ -252,35 +266,41 @@ def speech_model(
     generator: Optional[torch.Generator] = None,
     vq_ema: bool = False,
     compute_dtype: str = "float32",
+    sequence_axis: Optional[str] = None,
 ) -> ConvolutionalVQVAE:
     """The speech VQ-VAE (tasks.py:150-170, :280-286): 201 -> H = 1024, 3 tied
     residual layers of width 1024, D = 128, K = 1024, all scaled by
-    ``width_scale``; decoder jitter p = 0.25; its convs in ``compute_dtype``."""
+    ``width_scale``; decoder jitter p = 0.25; its convs in ``compute_dtype``;
+    its time axis sharded over ``sequence_axis`` where one is named."""
     s = lambda v: _scale(v, width_scale)
     return ConvolutionalVQVAE(
         in_channels=config.num_freq, num_hiddens=s(1024), embedding_dim=s(128),
         num_residual_layers=3, num_residual_hiddens=s(1024), commitment_cost=0.25,
         num_embeddings=s(1024), compat_vq_flatten=compat_vq_flatten, use_jitter=True,
-        vq_ema=vq_ema, generator=generator, compute_dtype=_dtype(compute_dtype),
+        vq_ema=vq_ema, generator=generator, compute_dtype=_dtype(compute_dtype), sequence_axis=sequence_axis,
     )
 
 
 def _echoed_model(
     config: DatasetConfig, width_scale: float, compat_vq_flatten: bool,
     generator: Optional[torch.Generator] = None, compute_dtype: str = "float32",
+    sequence_axis: Optional[str] = None,
 ) -> EchoedSpeechReconModel:
     """The composite (tasks.py:260-299): both branches in one flatten mode,
     so the stage handoff keeps the codes' meaning, and the decoder of
     train_echoed_speech.py:23-27 (H = 1024, 2 tied residual layers of width
     1024, jitter on, the spectrogram's bins out); the branches and the
-    decoder in one ``compute_dtype``."""
+    decoder in one ``compute_dtype``; the speech branch and the decoder
+    time-sharded over ``sequence_axis`` where one is named."""
     s = lambda v: _scale(v, width_scale)
     return EchoedSpeechReconModel(
         rir_model=rir_model(config, width_scale, compat_vq_flatten, generator, decoder=True,
                             compute_dtype=compute_dtype),
-        speech_model=speech_model(config, width_scale, compat_vq_flatten, generator, compute_dtype=compute_dtype),
+        speech_model=speech_model(config, width_scale, compat_vq_flatten, generator, compute_dtype=compute_dtype,
+                                  sequence_axis=sequence_axis),
         out_channels=config.num_freq, num_hiddens=s(1024), num_residual_layers=2,
         num_residual_hiddens=s(1024), use_jitter=True, generator=generator, compute_dtype=_dtype(compute_dtype),
+        sequence_axis=sequence_axis,
     )
 
 
@@ -301,12 +321,16 @@ class EchoedSpeechTask(Task):
     # recon loss; 0.0 is the reference's recon-only loss. It anchors unfrozen
     # encoders to the frozen codebooks (the JAX package's VALIDATION.md).
     commitment_weight: float = 0.0
-    # None resolves to the reference's memory-order flatten (no sequence
-    # sharding in the port); one flag governs both branches
+    # the mesh axis sharding the speech time axis: the speech branch and the decoder run time-sharded, the RIR
+    # branch gathers its transposed input; implies the vectors VQ flatten
+    sequence_axis: Optional[str] = None
+    # None resolves to the reference's memory-order flatten, or to the vectors
+    # one under sequence_axis; one flag governs both branches
     compat_vq_flatten: Optional[bool] = None
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> EchoedSpeechReconModel:
-        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, self.compute_dtype)
+        return _echoed_model(self.config, self.width_scale, resolved_vq_flatten(self), generator, self.compute_dtype,
+                             self.sequence_axis)
 
     @property
     def resident_fields(self) -> Tuple[str, ...]:
@@ -544,8 +568,15 @@ class JointLocationTask(Task):
     # ceil(tail_frac x B) per-sample angle errors; 0 leaves it out
     tail_weight: float = 0.0
     tail_frac: float = 0.125
+    # present for symmetry but refused: the model is the RIR branch and the head, whose conv length is the
+    # short frequency axis (the spectrogram's time enters as channels)
+    sequence_axis: Optional[str] = None
 
     def build_model(self, generator: Optional[torch.Generator] = None) -> JointLocationModel:
+        if self.sequence_axis is not None:
+            raise ValueError("JointLocationTask does not support sequence parallelism: its compute is the rir branch "
+                             "(time-as-channels, conv length = the short freq axis); use sequence parallelism on "
+                             "the speech/echoed/finetune stages")
         rir = rir_model(self.config, self.width_scale, self.compat_vq_flatten, generator,
                         compute_dtype=self.compute_dtype)
         out_dim = 2 if self.target_mode == "sincos" else self.output_dim
@@ -625,9 +656,10 @@ def graft_pretrained(
 def resolved_vq_flatten(task) -> bool:
     """The task's VQ flatten as a bool, True being the reference's
     memory-order flatten (vector_quantizer.py:32); ``None`` resolves to it,
-    as the JAX tasks' build_model does without sequence sharding."""
+    or to the vectors flatten where the task shards its time axis
+    (``sequence_axis``), as the JAX tasks' build_model does."""
     v = getattr(task, "compat_vq_flatten", None)
-    return True if v is None else bool(v)
+    return getattr(task, "sequence_axis", None) is None if v is None else bool(v)
 
 
 def check_flatten_handoff(donor_meta: dict, task, donor_label: str) -> None:

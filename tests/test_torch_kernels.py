@@ -47,7 +47,7 @@ def test_kernel_matches_plain_on_card(card, n, d, k):
     cb = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32)).to(card)
     e2 = (cb * cb).sum(1)
     with full_fp32():
-        got = nearest_indices_cuda(x, cb, e2).long().cpu()
+        got = nearest_indices_cuda(x, cb, e2)[0].long().cpu()
         want = vq.nearest_indices(x, cb, e2).cpu()
     rows = torch.nonzero(got != want).flatten()
     x64, cb64 = x.cpu().double()[rows], cb.cpu().double()
@@ -59,7 +59,7 @@ def test_kernel_matches_plain_on_card(card, n, d, k):
 
 @pytest.mark.cuda
 def test_kernel_ties_take_the_first_index(card):
-    got = nearest_indices_cuda(torch.ones(70, 4, device=card), torch.ones(90, 4, device=card), torch.full((90,), 4.0, device=card))
+    got = nearest_indices_cuda(torch.ones(70, 4, device=card), torch.ones(90, 4, device=card), torch.full((90,), 4.0, device=card))[0]
     assert torch.equal(got.cpu(), torch.zeros(70, dtype=torch.int32))
 
 
@@ -73,7 +73,8 @@ def test_two_launches_give_equal_indices(card, n, d, k):
     e2 = (cb * cb).sum(1)
     first = nearest_indices_cuda(x, cb, e2)
     for _ in range(3):
-        assert torch.equal(first, nearest_indices_cuda(x, cb, e2))
+        again = nearest_indices_cuda(x, cb, e2)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.mark.cuda
@@ -84,7 +85,7 @@ def test_duplicated_codebook_rows_take_the_lower_index_on_card(card, n):
     g = torch.Generator().manual_seed(1)
     x, half = torch.randn(n, 64, generator=g).to(card), torch.randn(512, 64, generator=g).to(card)
     cb = torch.cat([half, half])
-    got = nearest_indices_cuda(x, cb, (cb * cb).sum(1))
+    got = nearest_indices_cuda(x, cb, (cb * cb).sum(1))[0]
     assert int(got.max()) < 512
     with full_fp32():
         want = vq.nearest_indices(x, half, (half * half).sum(1))
@@ -94,22 +95,24 @@ def test_duplicated_codebook_rows_take_the_lower_index_on_card(card, n):
 @pytest.mark.cuda
 def test_zero_scores_and_nan_rows_on_card(card):
     """+0.0 and -0.0 are equal scores (the lower code wins), all ties across
-    the cluster's slices go to code 0, and a row of NaN takes code 0."""
+    the cluster's slices go to code 0, and a row of NaN takes code 0 with the
+    score +inf."""
     g = torch.Generator().manual_seed(2)
     cb = (torch.randn(1024, 64, generator=g) + 3.0).to(card)
     cb[3] = 0.0
     cb[700] = 0.0
     e2 = (cb * cb).sum(1)
     e2[700] = -0.0
-    got = nearest_indices_cuda(torch.zeros(1608, 64, device=card), cb, e2)
+    got = nearest_indices_cuda(torch.zeros(1608, 64, device=card), cb, e2)[0]
     assert torch.equal(got.cpu(), torch.full((1608,), 3, dtype=torch.int32))
     ones = nearest_indices_cuda(torch.ones(1608, 64, device=card), torch.ones(1024, 64, device=card),
-                                torch.full((1024,), 64.0, device=card))
+                                torch.full((1024,), 64.0, device=card))[0]
     assert torch.equal(ones.cpu(), torch.zeros(1608, dtype=torch.int32))
     x = torch.randn(300, 64, generator=g).to(card)
     x[7] = float("nan")
     cb = torch.randn(1024, 64, generator=g).to(card)
-    assert int(nearest_indices_cuda(x, cb, (cb * cb).sum(1))[7]) == 0
+    ids, scores = nearest_indices_cuda(x, cb, (cb * cb).sum(1))
+    assert int(ids[7]) == 0 and float(scores[7]) == float("inf")
 
 
 @pytest.mark.cuda

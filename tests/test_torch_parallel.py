@@ -18,6 +18,13 @@ against the single-process one within rtol 1e-5 (the sums run in another
 order); against JAX rtol 1e-4 / atol 1e-5, as the other parity tests; the
 EMA counts and the perplexity exactly; the ranks' codebooks bitwise.
 
+Since the model and sequence axes were ported, the same spawn also holds the
+data-parallel paths that had no test: the on-the-fly bank-then-exact joint
+recipe (its ranks' weights bitwise equal, a preempted recipe resumed bitwise
+at the same world size) and a bf16 step, held to the single-process bf16 step
+by ``test_torch_bf16.py``'s criterion (the two-rank step within half of the
+single process's bf16 distance from its float32 step).
+
 The workers import torch and the port only (this module imports JAX inside
 its fixtures)."""
 
@@ -36,14 +43,13 @@ import torch
 from acoustic_locating_vq_vae_torch.data import DatasetConfig, SampleBatch
 from acoustic_locating_vq_vae_torch.parallel import (
     DataParallel,
-    check_mesh,
     init_data_parallel,
     local_mesh,
     rank_seed,
     replicate,
     shard_batch,
 )
-from acoustic_locating_vq_vae_torch.train import EchoedSpeechTask, SpeechVQVAETask, Trainer
+from acoustic_locating_vq_vae_torch.train import EchoedSpeechTask, JointLocationTask, SpeechVQVAETask, Trainer
 
 WS = 1 / 32
 WORLD = 2
@@ -51,6 +57,10 @@ B = 4  # the global batch, 2 rows a rank
 T_SPEECH = 32
 ECHOED = dict(n_sample=512, audio_samples=3200, num_frames=64, NFFT=64, HOP_LENGTH=32)  # 33 bins x 64 frames
 ECHOED_CFG = DatasetConfig(**ECHOED)
+OTF_CFG = DatasetConfig(n_sample=512, audio_samples=3200, num_frames=100, NFFT=64, HOP_LENGTH=32)  # the smoke geometry
+OTF_CHUNK = 2048
+HALF, F32_REL = 0.5, 1e-5  # test_torch_bf16.py's criterion
+BF16_UNIT = 2.0 ** -8  # bf16's unit roundoff: one rounding of a rank's share of a gradient
 RESEED = 5.0  # an EMA reset threshold every code falls below: every code restarts from a global row
 JITTER_SEED = 900
 DP_RTOL = 1e-5
@@ -110,11 +120,30 @@ def _echoed_task():
 
 
 def _trainer(task, weights, dp=None, reseed=False, **kw):
-    tr = Trainer(task, device="cpu", seed=0, verbose=False, data_parallel=dp, **kw)
+    tr = Trainer(task, device="cpu", seed=0, verbose=False, mesh=dp, **kw)
     tr.model.load_state_dict(weights)
     if reseed:
         tr.model._vq.ema_reset_threshold = RESEED
     return tr
+
+
+def _one_step(tr, batch):
+    """One train step's metrics and gradients."""
+    metrics = {k: v.clone() for k, v in tr.step(batch).items()}
+    return {"metrics": metrics,
+            "grads": {k: p.grad.clone() for k, p in tr.model.named_parameters() if p.grad is not None}}
+
+
+def _recipe(root, store, inputs, dp=None, **kw):
+    """The joint stage's bank-then-exact recipe on the fly: 2 updates from
+    the RIR bank, 2 with exact synthesis."""
+    from acoustic_locating_vq_vae_torch.train import fit_joint_recipe
+
+    task = JointLocationTask(config=OTF_CFG, width_scale=WS, batch_size=8, predict_radius=True)
+    return fit_joint_recipe(task, 41, None, inputs["otf_val"], str(root / store), inputs["otf_composite"], 2, 4,
+                            exact_synth_kwargs=dict(rir_chunk=OTF_CHUNK), verbose=False, on_the_fly=True,
+                            device="cpu", synth_kwargs=dict(rir_bank=inputs["otf_bank"], rir_chunk=OTF_CHUNK),
+                            mesh=dp, **kw)[0]
 
 
 def _run_steps(tr, batch, cached=False):
@@ -171,7 +200,7 @@ def _worker(rank: int, port: int, root: Path) -> None:
     lin = torch.nn.Linear(3, 2)
     out["replicated"] = {k: v.clone() for k, v in replicate(lin, dp).state_dict().items()}
     try:
-        Trainer(_speech_task(), device="cpu", seed=rank, verbose=False, data_parallel=dp)
+        Trainer(_speech_task(), device="cpu", seed=rank, verbose=False, mesh=dp)
         out["replica_error"] = None
     except RuntimeError as e:
         out["replica_error"] = str(e)
@@ -179,10 +208,10 @@ def _worker(rank: int, port: int, root: Path) -> None:
     # a fit preempted on rank 1 alone, resumed: bitwise the uninterrupted fit
     train, val = _torch_batch(_batch(8, 201, 8, 6)), _torch_batch(_batch(4, 201, 8, 7))
     fit_task = SpeechVQVAETask(width_scale=WS, batch_size=4, eval_every=3, ckpt_every=2, num_updates=5)
-    whole = Trainer(fit_task, device="cpu", seed=3, verbose=False, data_parallel=dp,
+    whole = Trainer(fit_task, device="cpu", seed=3, verbose=False, mesh=dp,
                     checkpoint_dir=str(root / "fit_whole"))
     whole.fit(train, val)
-    cut = Trainer(fit_task, device="cpu", seed=3, verbose=False, data_parallel=dp,
+    cut = Trainer(fit_task, device="cpu", seed=3, verbose=False, mesh=dp,
                   checkpoint_dir=str(root / "fit_cut"))
     if rank == 1:
         step = cut.step
@@ -199,7 +228,7 @@ def _worker(rank: int, port: int, root: Path) -> None:
         out["preempted_at"] = None
     except Preempted as e:
         out["preempted_at"] = e.completed
-    resumed = Trainer(fit_task, device="cpu", seed=3, verbose=False, data_parallel=dp,
+    resumed = Trainer(fit_task, device="cpu", seed=3, verbose=False, mesh=dp,
                       checkpoint_dir=str(root / "fit_cut"))
     resumed.fit(train, val, resume=True)
     out["resumed_at"] = resumed.step_count
@@ -207,13 +236,39 @@ def _worker(rank: int, port: int, root: Path) -> None:
                                                                resumed.model.state_dict().values()))
     out["fit_state"] = whole.model.state_dict()
 
+    # a bf16 step
+    out["bf16"] = _one_step(_trainer(SpeechVQVAETask(width_scale=WS, batch_size=B, compute_dtype="bfloat16"),
+                                     inputs["speech"], dp), shard_batch(speech, dp))
+
+    # the on-the-fly bank->exact joint recipe, whole, and preempted on rank 1 in the polish leg then resumed
+    out["otf_state"] = _recipe(root, "otf_whole", inputs, dp).model.state_dict()
+    step, calls = Trainer.step, [0]
+
+    def stepping(self, *args, **kwargs):
+        calls[0] += 1
+        if calls[0] == 3 and rank == 1:
+            self.request_preemption()
+        return step(self, *args, **kwargs)
+
+    Trainer.step = stepping
+    try:
+        _recipe(root, "otf_cut", inputs, dp)
+        out["otf_preempted_at"] = None
+    except Preempted as e:
+        out["otf_preempted_at"] = e.completed
+    finally:
+        Trainer.step = step
+    resumed = _recipe(root, "otf_cut", inputs, dp, resume=True)
+    out["otf_resumed"] = resumed.model.state_dict()
+    out["otf_resumed_at"] = resumed.step_count
+
     # the pipeline: every stage data-parallel, rank 0 writes the store
     cfg = ECHOED_CFG
     ptrain, pval = _torch_batch(_batch(8, cfg.num_freq, cfg.num_frames, 8)), _torch_batch(
         _batch(4, cfg.num_freq, cfg.num_frames, 9))
     res = run_pipeline(1, ptrain, pval, store_dir=str(root / "pipeline"), config=cfg, width_scale=WS,
                        updates={k: 2 for k in ("speech", "rir", "echoed", "finetune", "location", "location_joint")},
-                       preset="fixed", joint_location=True, device="cpu", verbose=False, data_parallel=dp,
+                       preset="fixed", joint_location=True, device="cpu", verbose=False, mesh=dp,
                        cache_frozen=True)
     out["pipeline"] = {k: v[0] for k, v in res.items()}
     torch.save(out, root / f"rank{rank}.pt")
@@ -360,11 +415,19 @@ def runs(tmp_path_factory):
     from acoustic_locating_vq_vae_tpu.data import DatasetConfig as JaxDatasetConfig
     from acoustic_locating_vq_vae_tpu.train import loop as jloop
 
+    from acoustic_locating_vq_vae_torch import data as port_data
+
     root = tmp_path_factory.mktemp("dp")
     weights = _jax_weights()
     batches = {"speech_batch": _batch(B, 201, T_SPEECH, 20), "odd_batch": _batch(3, 201, T_SPEECH, 21),
                "echoed_batch": _batch(B, ECHOED_CFG.num_freq, ECHOED_CFG.num_frames, 22)}
-    torch.save({**batches, **{k: v[2] for k, v in weights.items()}}, root / "inputs.pt")
+    otf = {"otf_bank": port_data.make_rir_bank(OTF_CFG, n_theta=8, chunk=OTF_CHUNK, batch=4, device="cpu"),
+           "otf_val": port_data.make_dataset(torch.Generator().manual_seed(1), 8, OTF_CFG, batch=8, device="cpu",
+                                             rir_chunk=OTF_CHUNK),
+           "otf_composite": Trainer(EchoedSpeechTask(config=OTF_CFG, width_scale=WS, batch_size=8,
+                                                     compat_vq_flatten=False),
+                                    device="cpu", seed=40, verbose=False).model.state_dict()}
+    torch.save({**batches, **otf, **{k: v[2] for k, v in weights.items()}}, root / "inputs.pt")
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(Path(__file__).resolve().parents[1] / "src"),
                                                        os.environ.get("PYTHONPATH", "")]))
@@ -387,6 +450,10 @@ def runs(tmp_path_factory):
                 "echoed": _run_steps(_trainer(_echoed_task(), weights["echoed"][2]), echoed),
                 "echoed_cached": _run_steps(_trainer(_echoed_task(), weights["echoed"][2]), echoed, cached=True),
             }
+            for dtype in ("bfloat16", "float32"):
+                ref[f"one_step_{dtype}"] = _one_step(
+                    _trainer(SpeechVQVAETask(width_scale=WS, batch_size=B, compute_dtype=dtype), weights["speech"][2]),
+                    speech)
             jcfg = JaxDatasetConfig(**ECHOED)
             jax_ref = {
                 "speech": _jax_mesh_steps(jtrain.SpeechVQVAETask(width_scale=WS, batch_size=B), *weights["speech"][:2],
@@ -548,7 +615,7 @@ def test_replicas_must_start_equal(runs):
 
 
 def test_dp_pipeline_writes_one_store(runs):
-    """run_pipeline(data_parallel=...) over 2 ranks trains all six stages;
+    """run_pipeline(mesh=...) over 2 ranks trains all six stages;
     rank 0 alone wrote the store, which holds every final with its
     metadata."""
     from acoustic_locating_vq_vae_torch.utils import StageStore
@@ -563,6 +630,54 @@ def test_dp_pipeline_writes_one_store(runs):
         assert "data_parallel" in saved and saved["data_parallel"]["world_size"] == WORLD
         for k, v in got[0]["pipeline"][s].items():
             assert torch.equal(saved["model"][k], v), (s, k)
+
+
+def _rel(a, b) -> float:
+    """``||a - b|| / ||b||`` in float64."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float((a - b).norm() / b.norm())
+
+
+def test_dp_bf16_step_meets_the_bf16_criterion(runs):
+    """A bf16 step on 2 ranks against the single-process bf16 step: every
+    metric and gradient lies within HALF of the single process's bf16
+    distance from its float32 step (test_torch_bf16.py's criterion, with the
+    port's single process as the reference), or within F32_REL of it where
+    bf16 lies within float32 rounding of float32; perplexities exactly.
+
+    One term is the data split's own and is allowed beside HALF: a weight's
+    cotangent is bf16 (flax casts the weight to bf16), so each rank rounds its
+    share of a gradient to bf16 before the sum over the ranks, where one
+    process rounds the whole once. That moves every gradient by up to one bf16
+    rounding (BF16_UNIT, 2^-8 relative); the readings were 1.2e-3 to 2.7e-3.
+    Where bf16's own distance from float32 is about one rounding (the last
+    transposed conv's bias, 2.8e-3), that term is above HALF of it (2.4e-3:
+    ratio 0.86), so the bound is the larger of the two."""
+    got, ref, _, _ = runs
+    one, b16, f32 = got[0]["bf16"], ref["one_step_bfloat16"], ref["one_step_float32"]
+    pairs = [(f"metric {k}", one["metrics"][k], b16["metrics"][k], f32["metrics"][k]) for k in b16["metrics"]]
+    pairs += [(f"grad {k}", one["grads"][k], g, f32["grads"][k]) for k, g in b16["grads"].items()]
+    assert set(one["grads"]) == set(b16["grads"])
+    for what, g, w16, w32 in pairs:
+        dist, scale = _rel(g, w16), _rel(w16, w32)
+        assert dist <= (F32_REL if scale <= F32_REL else max(HALF * scale, BF16_UNIT)), (what, dist, scale)
+    assert float(one["metrics"]["perplexity"]) == float(b16["metrics"]["perplexity"])
+    for k, v in got[0]["bf16"]["grads"].items():
+        assert torch.equal(v, got[1]["bf16"]["grads"][k]), k
+
+
+def test_dp_on_the_fly_recipe_resumes_bitwise(runs):
+    """The on-the-fly bank->exact joint recipe on 2 ranks (each rank its
+    block of every synthesized batch): the ranks' weights bitwise equal, and
+    a recipe preempted on rank 1 in its polish leg stops both ranks at the
+    same step and, resumed at the same world size, ends bitwise equal to the
+    uninterrupted recipe."""
+    got, _, _, _ = runs
+    for res in got:
+        assert res["otf_preempted_at"] == 3 and res["otf_resumed_at"] == 4
+        for k, v in res["otf_state"].items():
+            assert torch.equal(v, got[0]["otf_state"][k]), k
+            assert torch.equal(res["otf_resumed"][k], v), k
 
 
 # ---------------------------------------------------------------- no spawn
@@ -589,7 +704,7 @@ def test_trainer_with_local_mesh_is_the_plain_trainer():
     bitwise."""
     data = _torch_batch(_batch(6, 201, 8, 1))
     a = Trainer(_speech_task(), device="cpu", seed=4, verbose=False)
-    b = Trainer(_speech_task(), device="cpu", seed=4, verbose=False, data_parallel=local_mesh("cpu"))
+    b = Trainer(_speech_task(), device="cpu", seed=4, verbose=False, mesh=local_mesh("cpu"))
     for _ in range(2):
         ma, mb = a.step(a.sample(data)), b.step(b.sample(data))
         assert all(torch.equal(ma[k], mb[k]) for k in ma)
@@ -597,18 +712,23 @@ def test_trainer_with_local_mesh_is_the_plain_trainer():
 
 
 @pytest.mark.parametrize("flags", [["--mesh-seq", "2"], ["--mesh-model", "2"], ["--mesh-slices", "2"],
-                                   ["--sequence-parallel"], ["--model-parallel"]],
+                                   ["--sequence-parallel", "--preset", "compat"],
+                                   ["--model-parallel", "--mesh-model", "2"]],
                          ids=["mesh_seq", "mesh_model", "mesh_slices", "sequence_parallel", "model_parallel"])
-def test_axes_of_the_next_slice_raise(flags, tmp_path):
-    """The pipeline CLI accepts the JAX mesh flags and raises
-    NotImplementedError for anything but the data axis, before any data is
-    made."""
+def test_axes_of_the_next_slice_raise(flags, tmp_path, monkeypatch):
+    """The pipeline CLI takes the JAX mesh flags (since the model, sequence
+    and multi-node axes were ported): outside torchrun an axis above one
+    raises for the missing process group, and --sequence-parallel with the
+    compat VQ flatten raises JAX's error, both before any data is made;
+    nothing raises NotImplementedError. (Runs under torchrun:
+    tests/test_torch_sequence_parallel.py.)"""
     from acoustic_locating_vq_vae_torch.cli import run_pipeline as cli
 
-    with pytest.raises(NotImplementedError, match="next slice"):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    want = (ValueError, "vectors VQ flatten") if "--sequence-parallel" in flags else (RuntimeError, "torchrun")
+    with pytest.raises(want[0], match=want[1]):
         cli.main(["--smoke", "--device", "cpu", "--store-dir", str(tmp_path), *flags])
-    with pytest.raises(NotImplementedError):
-        check_mesh(seq=2)
 
 
 def test_data_parallel_needs_its_group(monkeypatch, tmp_path):

@@ -434,6 +434,12 @@ def _port_pipeline_tasks(monkeypatch, **kw):
             tasks[task.name] = task
             self.model = type("Model", (), {"state_dict": lambda self: {}, "load_state_dict": lambda self, sd: None})()
 
+        def state_dict(self):  # the handoffs read and write whole tensors through the trainer
+            return {}
+
+        def load_state_dict(self, sd):
+            pass
+
         def fit(self, *a, **k):
             return None
 
