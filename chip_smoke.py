@@ -9,6 +9,7 @@
     python3 chip_smoke.py --deploy    # phases 1 and 14 only
     python3 chip_smoke.py --data-parallel  # phases 1 and 15, then the kernels' checks and timings
     python3 chip_smoke.py --mesh      # phases 1, 2 and 16, then the accumulation kernel's check
+    python3 chip_smoke.py --host-staged  # phases 1, 2 and 17, then the kernels' checks and timings
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -172,6 +173,28 @@ nothing of JAX. Phases, one line each (more for detail):
    profile's recorded VQ launches held to those counts, and vq_nearest and the
    accumulation timed at the shapes the shards run.
 
+17. host-staged training (``host_staged_phase``) at full width: (a) the
+   speech stage (B = 32) through ``Trainer.fit`` over 192 rows that
+   ``make_host_dataset`` put in pinned host memory, in chunks of 64 rotated
+   every 4 steps, 14 steps (three rotations, a wrap to chunk 0), the next
+   chunk copied on a side stream from the window's prefetch offset: bitwise
+   a resident trainer whose set is swapped for the same chunk, copied
+   synchronously, at the same steps (weights, Adam, every step's metrics and
+   codes), and the chunks fetched at the prefetch steps only; (b) the echoed
+   stage from its frozen-latent cache (B = 64) over two chunks of 64 rows
+   rotated every 3 steps, 7 steps, the cache rebuilt at each rotation,
+   likewise bitwise; (c) (a) preempted in the middle of a window and resumed
+   from the store, bitwise (a); (d) the cost of a rotation: one copy of a
+   2,000-row chunk (about 2.4 GB) from pinned memory on a side stream in
+   GB/s, and the wall time per step in fit without the copy, with it running
+   and with every rotation synchronous; (e) the five stage CLIs in this
+   process on one store (train_speech --host-staged 32 --rotate-every 1,
+   train_rir --vq-ema, train_echoed_speech, encoder_training_echoed_model,
+   train_location --joint), each stage's final in the store and the kernels
+   launched (the RIR stage's speech from --wav-dir), then train_speech
+   --librispeech-dir on a LibriSpeech layout of .wav utterances the phase
+   writes.
+
 Phase 2 also holds the registered operator (``torch.ops.acoustic_locating_vq_vae_torch.vq_nearest``,
 through which the main path reaches the kernel) equal to the wrapper, and
 phase 4 reads its dispatch cost beside the B = 8 serve latency.
@@ -190,7 +213,7 @@ calls, which for a call of tens of microseconds is the host's launch rate).
 The ``kernels`` line carries the card's time, one entry for each kernel and
 shape that was both timed and run by the main path's checked and timed runs
 (phases 3, 6 to 10, 12, 13 and 14's served artifacts), with the launches
-counted at that shape (``count_by_shape``); phase 15's runs count too.
+counted at that shape (``count_by_shape``); phase 15's and 17's runs count too.
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -280,17 +303,17 @@ CONVERGE_ROWS = {"train": 256, "val": 64}
 # phase 12: on-the-fly training with run K's options (scripts/run_runK.sh) at full width and geometry
 OTF = "--otf"  # `python3 chip_smoke.py --otf`: phase 1 and phase 12 only
 FULL_BANK = "--full-bank"  # phase 12 builds run K's whole 1024-angle bank (about 140 s) instead of OTF_BANK_THETA
-OTF_BANK_THETA = 128  # run K's 1024 angles cut to fit the script's time; its 8 T60s x 8 radii stay
+OTF_BANK_THETA = 64  # run K's 1024 angles cut to fit the script's time (128 until phase 17 came); 8 T60s x 8 radii stay
 OTF_RANGES = {"rt60_range": (0.12, 0.75), "radius_range": (0.45, 1.45)}
 OTF_NOISE = {"snr_range": (0.0, 30.0), "snr_clean_prob": 0.25}
 OTF_GRID = 8  # T60s and radii of run K's bank, np.linspace over the ranges
 OTF_SEED, OTF_LABEL_B = 12, 16
 OTF_WIDTH = 1.0  # width_scale of phase 12's stages
-OTF_TIMED = 6  # phase 12's timed steps a stage (cut from 10 to fit the script's time)
+OTF_TIMED = 4  # phase 12's timed steps a stage (cut from 10, then 6, to fit the script's time)
 OTF_CONFIG = None  # None: the dataset's full geometry (201 x 500, 6400-tap RIRs)
 OTF_CLI_EXTRA = ()  # flags added to every CLI run of phase 12
 # the recipe through the CLI: RECIPE_UPDATES a stage, the joint stage's first RECIPE_BANK from a small bank
-RECIPE_UPDATES, RECIPE_BANK, RECIPE_BANK_SIZE = 16, 8, (16, 2, 2)
+RECIPE_UPDATES, RECIPE_BANK, RECIPE_BANK_SIZE = 12, 6, (16, 2, 2)  # 16 and 8 until phase 17 came
 # `python3 chip_smoke.py --bf16`: phases 1 to 3 (the kernel checks and the localizers' weights), 8 and 13
 BF16_ONLY = "--bf16"
 # `python3 chip_smoke.py --kernels` runs only what needs no model: the build,
@@ -324,6 +347,18 @@ MESH_B = 16  # phase 16's batch
 MESH_TIMED = 3  # phase 16's timed steps, two ranks over gloo on one card (a check's cost, not a speed figure)
 MESH_LONG, MESH_LONG_B = 4000, 2  # phase 16 (b): frames and rows of the long-sequence forward
 MESH_CLI_WIDTH = "0.25"  # phase 16 (e)'s width: the split layers' widths (256) at the smoke geometry
+# `python3 chip_smoke.py --host-staged`: phases 1, 2 and 17, then the kernels' checks and timings
+HOST_STAGED = "--host-staged"
+HOST_ROOT = PIPE_ROOT / "host_staged"
+HOST_SEED = 170
+HOST_WIDTH = 1.0  # width_scale of phase 17's stages: full width
+HOST_CONFIG = None  # None: the dataset's full geometry
+HOST_ROWS, HOST_CHUNK, HOST_EVERY, HOST_STEPS = 192, 64, 4, 14  # (a): three rotations, a wrap to chunk 0
+HOST_ECHOED_CHUNK, HOST_ECHOED_EVERY, HOST_ECHOED_STEPS, HOST_ECHOED_B = 64, 3, 7, 64  # (b)
+HOST_COPY_ROWS = 2000  # (d): JAX's default chunk, about 2.4 GB at full width
+HOST_COPY_EVERY = 8  # (d): the prefetch starts 4 steps into a window
+HOST_SYNC_STEPS = 5  # (d): steps with a synchronous rotation each
+HOST_CLI_FLAGS = ("--updates", "2", "--dataset-size", "64", "--val-size", "16", "--vq-flatten", "vectors")
 OP_TARGET = f"{PKG}.vq_nearest.default"  # the registered VQ operator as an exported graph names it
 # the JSON keys each deploy CLI prints, the JAX package's scripts' own (tests/test_torch_deploy_cli.py checks
 # them against those scripts); the port's latency bench adds the device's name
@@ -336,8 +371,11 @@ DEPLOY_CLI_KEYS = {
 }
 
 
+T_START = time.perf_counter()  # the script's start, for each line's seconds since it
+
+
 def phase(n: int, msg: str) -> None:
-    print(f"phase {n}: {msg}", flush=True)
+    print(f"phase {n} [{time.perf_counter() - T_START:.1f} s]: {msg}", flush=True)
 
 
 # (kernel, N, D, K) -> launches at that shape in the main path's runs opened with count_by_shape
@@ -2298,7 +2336,7 @@ BF16_STAGES = (("speech", "speech", False, {}), ("speech EMA", "speech", False, 
                ("echoed", "echoed", False, {}), ("echoed cached", "echoed", True, {}), ("finetune", "finetune", False, {}),
                ("location", "location", False, {}), ("joint", "location_joint", False, {}))
 BF16_SEED = 130
-BF16_TIMED = 6  # phase 13 (b)'s timed steps a stage, dtype and pin (cut from 10 to fit the script's time)
+BF16_TIMED = 4  # phase 13 (b)'s timed steps a stage, dtype and pin (cut from 10, then 6, to fit the script's time)
 # The card's bf16 gradient of a step against the CPU port's bf16 step on the same weights, batch, jitter decisions
 # and latents, ||card - CPU|| / ||CPU||, must stay within the CPU bf16 step's own distance from the same step in
 # float64 (BF16_FRACTION of it): the bound comes from the CPU, never from the card. The CPU computes XLA-CPU's
@@ -3845,6 +3883,306 @@ def mesh_phase(dev, card: str) -> None:
     phase(16, f"phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# Phase 17: host-staged training (a chunk of a pinned host set on the card, the next copied on a side stream),
+# its cost, and the per-stage CLIs chained on one store.
+def recorded_host(host, every: int):
+    """``host``'s rows as a HostStagedDataset rotated every ``every`` steps whose chunk(i) calls are logged as
+    (step of ``steps``, i); returns (the set, the log, the list the caller appends one entry per step to)."""
+    from acoustic_locating_vq_vae_torch.data import HostStagedDataset
+
+    calls, steps = [], []
+
+    class Recorded(HostStagedDataset):
+        def chunk(self, i):
+            calls.append((len(steps), i))
+            return super().chunk(i)
+
+    return Recorded(host.arrays, host.chunk_size, every), calls, steps
+
+
+def codes_hook(module, codes: list):
+    """Log every assignment of a VQ module (its ids, on the device)."""
+    return module.register_forward_hook(lambda mod, inp, out: codes.append(out.indices.detach().clone()))
+
+
+def host_fit(task, host, every: int, steps: int, seed: int, dev, composite=None, cache: bool = False,
+             store=None, stop_at=None, resume: bool = False):
+    """Trainer.fit over ``host`` re-chunked every ``every`` steps: (trainer, history, chunk calls, codes of
+    every step, wall seconds of every step in fit). ``stop_at``: request preemption after that step."""
+    import torch
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    tr = Trainer(task, device=dev, seed=seed, verbose=False, cache_frozen=cache,
+                 checkpoint_dir=None if store is None else str(store))
+    if composite is not None:
+        tr.model.load_state_dict(composite)
+    staged, calls, marks = recorded_host(host, every)
+    codes = []
+    hook = codes_hook(tr.model.speech_model._vq if composite is not None else tr.model._vq, codes)
+    step = tr.step
+
+    def timed(*args, **kwargs):
+        marks.append(time.perf_counter())
+        out = step(*args, **kwargs)
+        if stop_at is not None and tr.step_count == stop_at:
+            tr.request_preemption()
+        return out
+
+    tr.step = timed
+    try:
+        history = tr.fit(staged, num_updates=steps, resume=resume)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        marks.append(time.perf_counter())
+    finally:
+        hook.remove()
+    return tr, history, calls, codes, [b - a for a, b in zip(marks, marks[1:])]
+
+
+def host_control(task, host, every: int, steps: int, seed: int, dev, composite=None, cache: bool = False):
+    """The resident control of host_fit: a plain trainer whose set (and cache) is swapped for the same chunk,
+    copied synchronously, at the same steps; (trainer, metrics of every step, codes of every step)."""
+    from acoustic_locating_vq_vae_torch.train import Trainer
+
+    tr = Trainer(task, device=dev, seed=seed, verbose=False, cache_frozen=cache)
+    if composite is not None:
+        tr.model.load_state_dict(composite)
+    codes, metrics = [], []
+    hook = codes_hook(tr.model.speech_model._vq if composite is not None else tr.model._vq, codes)
+    rows = None
+    try:
+        for i in range(steps):
+            if i % every == 0:
+                data = host.chunk(i // every).map(lambda a: a.to(dev))
+                rows = tr.build_cache(data) if cache else None
+            metrics.append(one_step(tr, data, rows))
+    finally:
+        hook.remove()
+    return tr, metrics, codes
+
+
+def assert_host_run(label: str, fit, control, calls_want) -> None:
+    """Phase 17 (a) and (b): the fit bitwise its control (weights, Adam, every step's metrics and codes), and
+    the chunks fetched at the steps the schedule names (the prefetches, no synchronous rotation)."""
+    tr, history, calls, codes, _ = fit
+    ctl, metrics, ctl_codes = control
+    if calls != calls_want:
+        raise AssertionError(f"17 {label}: chunks fetched at (step, chunk) {calls}, want {calls_want}")
+    assert_bitwise(tr.model.state_dict(), ctl.model.state_dict(), f"17 {label} weights")
+    assert_bitwise(tr.optimizer.state_dict()["state"], ctl.optimizer.state_dict()["state"], f"17 {label} Adam")
+    assert_bitwise({k: list(v) for k, v in history.train.items()},
+                   {k: [m[k] for m in metrics] for k in history.train}, f"17 {label} metrics")
+    assert_bitwise(codes, ctl_codes, f"17 {label} codes")
+
+
+def rotation_cost(dev, host, task, card: str) -> dict:
+    """Phase 17 (d): one host-to-device copy of a HOST_COPY_ROWS-row chunk from pinned memory on a side
+    stream (GB/s), and the wall time per step in fit in a window with that copy running, without it, and with
+    every rotation synchronous (rotate_every 1)."""
+    import torch
+    from acoustic_locating_vq_vae_torch.data import HostStagedDataset
+
+    n = HOST_COPY_ROWS + 1  # chunk 1 slides back one row: two chunks of HOST_COPY_ROWS, one row apart
+    big = host.arrays.map(lambda a: torch.empty((n,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                                pin_memory=dev.type == "cuda"))
+    for lo in range(0, n, host.size):
+        hi = min(n, lo + host.size)
+        for dst, src in zip(big, host.arrays):
+            dst[lo:hi].copy_(src[: hi - lo])
+    staged = HostStagedDataset(big, HOST_COPY_ROWS, HOST_COPY_EVERY)
+    nbytes = sum(a.numel() * a.element_size() for a in staged.chunk(0))
+    side = torch.cuda.Stream(dev)
+    rates = []
+    for i in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            chunk = staged.chunk(i).map(lambda a: a.to(dev, non_blocking=True))
+            end.record(side)
+        end.synchronize()
+        rates.append(nbytes / (start.elapsed_time(end) / 1e3) / 1e9)
+        del chunk
+    every, steps = HOST_COPY_EVERY, 3 * HOST_COPY_EVERY
+    at = max(1, (every + 1) // 2)
+    _, _, calls, _, walls = host_fit(task, staged, every, steps, HOST_SEED + 4, dev)
+    if calls != [(0, 0), (at, 1), (every + at, 2), (2 * every + at, 3)]:
+        raise AssertionError(f"17 (d) chunks fetched at {calls}")
+    # walls[i]: step i on the card, then the host's work up to step i + 1 (its rotation or prefetch), ending at
+    # the sampler's wait for step i; a synchronous rotation to step i + 1's chunk falls in walls[i]
+    in_copy = [walls[w * every + j] for w in (1, 2) for j in range(at, every)]
+    no_copy = [walls[w * every + j] for w in (1, 2) for j in range(1, at)]
+    rotation = [walls[w * every] for w in (1, 2)]
+    _, _, sync_calls, _, sync_walls = host_fit(task, staged, 1, HOST_SYNC_STEPS, HOST_SEED + 4, dev)
+    if [c for c, _ in sync_calls] != list(range(HOST_SYNC_STEPS)):
+        raise AssertionError(f"17 (d) synchronous rotations at {sync_calls}")
+    ms = lambda xs: 1e3 * statistics.fmean(xs)
+    out = {"bytes": nbytes, "gb_s": rates, "copy_ms": ms(in_copy), "no_copy_ms": ms(no_copy),
+           "rotation_ms": ms(rotation), "sync_ms": ms(sync_walls[:-1]), "walls": walls, "sync_walls": sync_walls}
+    phase(17, f"(d) one chunk of {HOST_COPY_ROWS} rows ({nbytes / 1e9:.3f} GB) host to card from pinned memory on a "
+              f"side stream: " + ", ".join(f"{r:.2f}" for r in rates) + " GB/s; wall time per step in fit "
+              f"(speech, B = {task.batch_size}, rotate_every {every}): {out['no_copy_ms']:.2f} ms without the copy, "
+              f"{out['copy_ms']:.2f} ms in the window's steps with the copy running, {out['rotation_ms']:.2f} ms at "
+              f"the rotation onto the copied chunk; every step rotating synchronously (rotate_every 1): "
+              f"{out['sync_ms']:.2f} ms; steps "
+              + ", ".join(f"{1e3 * w:.1f}" for w in walls) + f" ms ({card})")
+    del big, staged
+    return out
+
+
+def write_librispeech_wavs(root: Path, n: int, samples: int) -> Path:
+    """A LibriSpeech layout of ``n`` 16 kHz int16 .wav utterances (seeded harmonic tones in noise); returns
+    the directory that holds them."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(HOST_SEED)
+    t = np.arange(samples) / 16000.0
+    d = root / "LibriSpeech" / "train-clean-100" / "19" / "198"
+    d.mkdir(parents=True, exist_ok=True)
+    for u in range(n):
+        wave = sum(np.sin(2 * np.pi * (120 + 40 * u) * h * t) / h for h in range(1, 6)) + 0.1 * rng.standard_normal(samples)
+        wavfile.write(d / f"19-198-{u:04d}.wav", 16000, (wave / np.abs(wave).max() * 20000).astype(np.int16))
+    return d
+
+
+def stage_clis(dev, counters, card: str) -> dict:
+    """Phase 17 (e): the five stage CLIs in this process on one store (the RIR stage's speech from --wav-dir),
+    then train_speech --librispeech-dir; after each, the stage's final in the store and the kernels launched."""
+    import torch
+    from acoustic_locating_vq_vae_torch.cli import (
+        encoder_training_echoed_model, train_echoed_speech, train_location, train_rir, train_speech,
+    )
+    from acoustic_locating_vq_vae_torch.utils import StageStore
+
+    store = HOST_ROOT / "store"
+    common = [*HOST_CLI_FLAGS, "--device", DEVICE, "--store-dir", str(store), "--width-scale", str(HOST_WIDTH)]
+    libri = HOST_ROOT / "corpus"
+    wavs = write_librispeech_wavs(libri, 4, (HOST_CONFIG.audio_samples if HOST_CONFIG else 80000) + 8000)
+    runs = (
+        ("speech", train_speech, ["--host-staged", "32", "--rotate-every", "1"], store),
+        ("rir", train_rir, ["--vq-ema", "--wav-dir", str(wavs)], store),
+        ("echoed", train_echoed_speech, [], store),
+        ("finetune", encoder_training_echoed_model, [], store),
+        ("location_joint", train_location, ["--joint"], store),
+        ("speech", train_speech, ["--librispeech-dir", str(libri)], HOST_ROOT / "libri_store"),
+    )
+    out = {}
+    for stage, module, extra, where in runs:
+        argv = [*common, *extra] if where == store else [*common, "--store-dir", str(where), *extra]
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with count_by_shape():
+            module.main(argv)
+        torch.cuda.synchronize(dev)
+        label = f"{module.__name__.rsplit('.', 1)[-1]} {' '.join(extra[:1])}".strip()
+        launches = {c.__name__: c.launches for c in counters}
+        s = StageStore(str(where))
+        if not (s.has_stage(stage) and s.stage_metadata(stage).get("final")):
+            raise AssertionError(f"17 (e) {label}: no final {stage!r} in {where}")
+        if launches["nearest_indices_cuda"] < 1:
+            raise AssertionError(f"17 (e) {label} never launched vq_nearest: {launches}")
+        if stage in ("speech", "rir") and launches["codebook_stats_cuda" if "--vq-ema" in extra
+                                                    else "codebook_grad_cuda"] < 1:
+            raise AssertionError(f"17 (e) {label} never launched its accumulation kernel: {launches}")
+        out[label] = (time.perf_counter() - t0, launches)
+    phase(17, f"(e) the stage CLIs in this process on one store ({' '.join(HOST_CLI_FLAGS)}, width {HOST_WIDTH}; "
+              "the RIR stage's speech from --wav-dir), each stage's final in the store: " + "; ".join(
+                  f"{label} {sec:.1f} s, launches {launches}" for label, (sec, launches) in out.items()) + f" ({card})")
+    return out
+
+
+def host_staged_phase(dev, counters, card: str) -> None:
+    """Phase 17: host-staged training at full width. (a) the speech stage over HOST_ROWS pinned host rows in
+    chunks of HOST_CHUNK rotated every HOST_EVERY steps, bitwise a resident control swapped synchronously at
+    the same steps; (b) the echoed stage from its cache over two chunks, likewise; (c) (a) preempted mid-window
+    and resumed from the store, bitwise (a); (d) the cost of a rotation; (e) the stage CLIs."""
+    import torch
+    from acoustic_locating_vq_vae_torch.data import DatasetConfig, HostStagedDataset, make_host_dataset
+    from acoustic_locating_vq_vae_torch.train import Preempted, SpeechVQVAETask
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(HOST_ROOT, ignore_errors=True)
+    HOST_ROOT.mkdir(parents=True)
+    cfg = HOST_CONFIG or DatasetConfig()
+    t0 = time.perf_counter()
+    host = make_host_dataset(torch.Generator(device=dev).manual_seed(HOST_SEED), HOST_ROWS, cfg,
+                             chunk_size=HOST_CHUNK, rotate_every=HOST_EVERY, device=dev)
+    made_s = time.perf_counter() - t0
+    if dev.type == "cuda" and not all(a.is_pinned() for a in host.arrays if a.numel()):
+        raise AssertionError("17: the host set is not in pinned memory")
+    task = SpeechVQVAETask(config=cfg, width_scale=HOST_WIDTH)
+    at = max(1, (HOST_EVERY + 1) // 2)
+    n = host.num_chunks
+    for c in counters:
+        c.launches = 0
+    with count_by_shape():
+        fit = host_fit(task, host, HOST_EVERY, HOST_STEPS, HOST_SEED + 1, dev)
+    a_launches = {c.__name__: c.launches for c in counters}  # fit's own: read before the control runs
+    for name in ("nearest_indices_cuda", "codebook_grad_cuda"):
+        if a_launches[name] < HOST_STEPS:
+            raise AssertionError(f"17 (a) fit launched {name} {a_launches[name]} times in {HOST_STEPS} steps")
+    want = [(0, 0)] + [(w * HOST_EVERY + at, w + 1) for w in range((HOST_STEPS - 1 - at) // HOST_EVERY + 1)]
+    assert_host_run("(a)", fit, host_control(task, host, HOST_EVERY, HOST_STEPS, HOST_SEED + 1, dev), want)
+    phase(17, f"(a) speech at B = {task.batch_size}, {HOST_ROWS} pinned host rows (made in {made_s:.2f} s) in "
+              f"{n} chunks of {HOST_CHUNK}, rotating every {HOST_EVERY} steps, {HOST_STEPS} steps through fit with "
+              f"the side-stream prefetch at offset {at}: chunks fetched at (step, chunk) {fit[2]}; weights, Adam, "
+              f"every step's metrics and codes bitwise the synchronous resident control; launches of fit "
+              f"{a_launches} ({card})")
+
+    composite = composite_weights(make_stage_task("echoed", config=cfg, width_scale=HOST_WIDTH),
+                                  torch.Generator().manual_seed(HOST_SEED + 2))
+    echoed = make_stage_task("echoed", config=cfg, width_scale=HOST_WIDTH, batch_size=HOST_ECHOED_B)
+    two = HostStagedDataset(host.arrays.map(lambda a: a[: 2 * HOST_ECHOED_CHUNK]), HOST_ECHOED_CHUNK,
+                            HOST_ECHOED_EVERY)
+    for c in counters:
+        c.launches = 0
+    with count_by_shape():
+        fit_b = host_fit(echoed, two, HOST_ECHOED_EVERY, HOST_ECHOED_STEPS, HOST_SEED + 3, dev, composite, cache=True)
+    b_launches = {c.__name__: c.launches for c in counters}  # fit's own: read before the control runs
+    rotations = (HOST_ECHOED_STEPS - 1) // HOST_ECHOED_EVERY + 1
+    if len(fit_b[3]) != rotations * HOST_ECHOED_CHUNK // min(HOST_ECHOED_CHUNK, max(HOST_ECHOED_B, 8)):
+        raise AssertionError(f"17 (b) the cache was built {len(fit_b[3])} times, want once a rotation")
+    # the cached steps run the decoder alone: every launch is a cache build's, one per branch and batch
+    if b_launches["nearest_indices_cuda"] < 2 * len(fit_b[3]):
+        raise AssertionError(f"17 (b) fit launched vq_nearest {b_launches['nearest_indices_cuda']} times in "
+                             f"{len(fit_b[3])} cache batches of two branches")
+    ctl_b = host_control(echoed, two, HOST_ECHOED_EVERY, HOST_ECHOED_STEPS, HOST_SEED + 3, dev, composite, cache=True)
+    at_b = max(1, (HOST_ECHOED_EVERY + 1) // 2)
+    want_b = [(0, 0)] + [(w * HOST_ECHOED_EVERY + at_b, w + 1)
+                         for w in range((HOST_ECHOED_STEPS - 1 - at_b) // HOST_ECHOED_EVERY + 1)]
+    assert_host_run("(b)", fit_b, ctl_b, want_b)
+    phase(17, f"(b) echoed from its cache at B = {HOST_ECHOED_B}, two chunks of {HOST_ECHOED_CHUNK} rows, rotating "
+              f"every {HOST_ECHOED_EVERY} steps, {HOST_ECHOED_STEPS} steps: chunks fetched at {fit_b[2]}, the cache "
+              f"rebuilt at each of {rotations} rotations; bitwise the synchronous control (weights, Adam, metrics, "
+              f"the cache builds' speech codes); launches of fit {b_launches} ({card})")
+
+    store = HOST_ROOT / "resume"
+    stop = HOST_EVERY + at  # mid-window, just after the prefetch offset
+    try:
+        host_fit(task, host, HOST_EVERY, HOST_STEPS, HOST_SEED + 1, dev, store=store, stop_at=stop)
+        raise AssertionError("17 (c): the preempted fit did not stop")
+    except Preempted as e:
+        stopped = e.completed
+    resumed = host_fit(task, host, HOST_EVERY, HOST_STEPS, HOST_SEED + 1, dev, store=store, resume=True)
+    assert_bitwise(resumed[0].model.state_dict(), fit[0].model.state_dict(), "17 (c) weights")
+    assert_bitwise(resumed[0].optimizer.state_dict()["state"], fit[0].optimizer.state_dict()["state"], "17 (c) Adam")
+    if stopped != stop or resumed[2][0] != (0, stop // HOST_EVERY):
+        raise AssertionError(f"17 (c) stopped at {stopped}, resumed fetching {resumed[2]}")
+    phase(17, f"(c) (a) preempted at step {stopped} (window {stop // HOST_EVERY}, offset {stop % HOST_EVERY}) and "
+              f"resumed from the store: chunks fetched at {[(stop + s, c) for s, c in resumed[2]]}, weights and Adam "
+              f"bitwise the uninterrupted run ({card})")
+    del fit, fit_b, ctl_b, resumed
+    torch.cuda.empty_cache()
+
+    rotation_cost(dev, host, task, card)
+    del host, two
+    torch.cuda.empty_cache()
+    stage_clis(dev, counters, card)
+    shutil.rmtree(HOST_ROOT, ignore_errors=True)
+    phase(17, f"phase 17 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def manifest_task(stage: str, cfg, compute_dtype: str = "float32"):
     """The task of ``stage`` as phase 10's pipeline builds it (preset fixed, the joint stage with the range
     output and a tail term, a checkpoint every PIPE_CKPT_EVERY)."""
@@ -3916,6 +4254,18 @@ def main() -> int:
         data_parallel_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
         max_err = check_nearest(vq, nearest_indices_cuda, dev)
         accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
+        time_training_kernels(dev, card)
+        time_stage_kernels(dev, card)
+        print_kernels_line(max_err, accum_err)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if HOST_STAGED in sys.argv[1:]:
+        # phases 2 and 17, then the kernels' checks and timings, for the kernels line of phase 17's launches
+        max_err = check_nearest(vq, nearest_indices_cuda, dev)
+        host_staged_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
+        accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
+        time_serving_kernels(dev, card)
         time_training_kernels(dev, card)
         time_stage_kernels(dev, card)
         print_kernels_line(max_err, accum_err)
@@ -4155,6 +4505,9 @@ def main() -> int:
 
     # ---- phase 16: sequence and tensor sharding (two ranks on the card), the CLI's mesh flags under torchrun
     mesh_phase(dev, card)
+
+    # ---- phase 17: host-staged training (pinned host set, side-stream prefetch), its cost, the stage CLIs
+    host_staged_phase(dev, counters, card)
 
     print_kernels_line(max_err, accum_err)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,32 +1,41 @@
-"""What the deploy and evaluation entry points share: their flags, the
-localizer read from a store with its checkpoint-authoritative modes, and the
-serving-latency bench.
+"""What the per-stage training CLIs and the deploy and evaluation entry
+points share: their flags, the one data setup, the task's and the trainer's
+arguments from the flags, the localizer read from a store with its
+checkpoint-authoritative modes, and the serving-latency bench.
 
-Counterpart of the deploy half of the JAX package's ``scripts/_common.py``
-(``task_kwargs`` :403, ``apply_stage_eval_config`` :428-468,
-``load_localizer_stages`` :471-509, ``build_localizer`` :512-539,
-``latency_bench`` :613-664). The flags are the pipeline CLI's own
-(``cli.run_pipeline.add_data_args``, ``add_model_args``,
-``add_synthesis_args``) and the data come from its ``load_datasets``, so a
-store trained by ``run_pipeline`` is read back with the same flags. A stage
-in the port's store is a ``Trainer`` checkpoint whose weights are under
-``"model"`` (JAX: ``"params"``).
+Counterpart of the JAX package's ``scripts/_common.py`` (``base_parser``
+:35-235, ``setup`` :238-404, ``task_kwargs`` :407-425,
+``apply_stage_eval_config`` :428-468, ``load_localizer_stages`` :471-509,
+``build_localizer`` :512-539, ``trainer_kwargs`` :542-572, ``final_metric``
+:599-610, ``latency_bench`` :613-664) without ``--platform`` and
+``--vq-backend``: the port runs on ``--device`` and always through its
+kernels. The flags are the pipeline CLI's own (``cli.run_pipeline``'s
+``add_*_args``) and the data come from its ``load_datasets``, so a store
+trained by ``run_pipeline`` or by the stage CLIs is read back with the same
+flags. A stage in the port's store is a ``Trainer`` checkpoint whose weights
+are under ``"model"`` (JAX: ``"params"``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import time
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
-from .run_pipeline import add_data_args, add_model_args, add_synthesis_args, load_datasets
+from .run_pipeline import (
+    add_data_args, add_mesh_args, add_model_args, add_synthesis_args, add_training_args, data_parallel,
+    load_datasets, otf_kwargs,
+)
 
 __all__ = [
-    "apply_stage_eval_config", "base_parser", "build_localizer", "latency_bench", "load_localizer_stages",
-    "load_datasets", "rir_branch", "task_kwargs",
+    "apply_stage_eval_config", "base_parser", "build_localizer", "final_metric", "latency_bench",
+    "load_localizer_stages", "load_datasets", "print_recon_done", "rir_branch", "stage_parser", "stage_setup",
+    "task_kwargs", "trainer_kwargs",
 ]
 
 
@@ -38,13 +47,58 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     add_model_args(p)
     add_synthesis_args(p)
     # the pipeline's training-only data options, off: load_datasets reads them
-    p.set_defaults(on_the_fly=False, rir_bank=0, rir_bank_rt60s=8, rir_bank_radii=8, dataset_bf16=False)
+    p.set_defaults(on_the_fly=False, rir_bank=0, rir_bank_rt60s=8, rir_bank_radii=8, dataset_bf16=False,
+                   prune_dataset=False, host_staged=0, rotate_every=500)
     return p
 
 
-def task_kwargs(args, config, location: bool = False) -> dict:
-    """A task's keyword arguments from the flags (JAX ``_common.py:403``)."""
-    kw = dict(config=config, width_scale=args.width_scale, compute_dtype=args.compute_dtype)
+def stage_parser(description: str) -> argparse.ArgumentParser:
+    """The flags of the per-stage training CLIs: the pipeline's data, model,
+    training, synthesis and mesh flags and ``--batch-size`` (the JAX
+    ``base_parser``). ``--width-scale`` defaults to 1, or to 1/16 under
+    ``--smoke``, as the JAX scripts' smoke width."""
+    p = argparse.ArgumentParser(description=description, formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_data_args(p)
+    add_model_args(p)
+    add_training_args(p)
+    add_synthesis_args(p)
+    add_mesh_args(p)
+    p.add_argument("--batch-size", type=int, default=None, help="override the stage's batch size")
+    p.set_defaults(width_scale=None)
+    return p
+
+
+@contextlib.contextmanager
+def stage_setup(args, resident_fields=None):
+    """The mesh and the data of a per-stage CLI (the JAX ``setup``): joins
+    the group torchrun set up where the mesh flags ask for one, then yields
+    ``(config, mesh or None, train, val)`` from :func:`load_datasets`
+    (``resident_fields``: the stage's, for ``--prune-dataset``); ``--smoke``
+    without ``--updates`` trains 20. The group is left on the way out."""
+    mesh = data_parallel(args)
+    try:
+        if args.smoke and args.updates is None:
+            args.updates = 20
+        config, train, val = load_datasets(args, resident_fields)
+        yield config, mesh, train, val
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def task_kwargs(args, config, location: bool = False, supports_ema: bool = False,
+                supports_seq: bool = False) -> dict:
+    """A task's keyword arguments from the flags (JAX ``_common.py:407-425``):
+    the width (``--width-scale``, else 1/16 under ``--smoke``, else 1), the
+    compute dtype, ``--vq-ema`` and ``--sequence-parallel`` where the stage
+    supports them, the VQ flatten, the location modes, ``--batch-size`` and
+    ``--ckpt-every``."""
+    width = args.width_scale if args.width_scale is not None else (1 / 16 if args.smoke else 1.0)
+    kw = dict(config=config, width_scale=width, compute_dtype=args.compute_dtype)
+    if supports_ema and getattr(args, "vq_ema", False):
+        kw["vq_ema"] = True
+    if supports_seq and getattr(args, "sequence_parallel", False):
+        kw["sequence_axis"] = "seq"
     if args.vq_flatten:
         kw["compat_vq_flatten"] = args.vq_flatten == "compat"
     if location:
@@ -52,7 +106,43 @@ def task_kwargs(args, config, location: bool = False) -> dict:
             kw["input_mode"] = args.location_input_mode
         if args.location_target_mode:
             kw["target_mode"] = args.location_target_mode
+    if getattr(args, "batch_size", None):
+        kw["batch_size"] = args.batch_size
+    if getattr(args, "ckpt_every", None):
+        kw["ckpt_every"] = args.ckpt_every
     return kw
+
+
+def trainer_kwargs(args, mesh=None) -> dict:
+    """A stage trainer's keyword arguments from the flags, after
+    :func:`load_datasets` (JAX ``_common.py:542-572``): the device, logging,
+    profiling, the cache, checkpoint retention, the mesh and
+    ``--model-parallel``, and under ``--on-the-fly`` the synthesis options
+    with the bank and the speech pool."""
+    return dict(device=args.device, log_every=args.log_every, profile_dir=args.profile_dir,
+                cache_frozen=args.cache_frozen, keep_checkpoints=args.keep_checkpoints, mesh=mesh,
+                model_parallel=args.model_parallel, **otf_kwargs(args))
+
+
+def final_metric(history, key: str, split: str = "train") -> Optional[float]:
+    """The mean of the last 100 values of ``key`` in a run's history (a
+    :class:`..train.TrainHistory`), or None where the run recorded none: a
+    ``--resume`` that finds the stage at or past ``--updates`` trains
+    nothing (JAX ``_common.py:599-610``)."""
+    vals = history.finalize().get(split, {}).get(key)
+    if vals is None or len(vals) == 0:
+        return None
+    return float(np.asarray(vals)[-100:].mean())
+
+
+def print_recon_done(history, stage: str, args, perplexity: bool = False) -> None:
+    """The JAX scripts' closing line of a VQ-VAE (``perplexity``) or composite stage."""
+    recon = final_metric(history, "recon_error")
+    if recon is None:
+        print(f"stage {stage!r} already at/past {args.updates} updates; nothing to train (--resume)", flush=True)
+        return
+    extra = f", perplexity {final_metric(history, 'perplexity'):.1f}" if perplexity else ""
+    print(f"done: final recon_error {recon:.4f}{extra}; stage {stage!r} saved to {args.store_dir}", flush=True)
 
 
 def apply_stage_eval_config(

@@ -43,17 +43,17 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     import torch
 
-    from ..data import DatasetConfig, load_wav_dir, make_dataset, save_dataset, save_dataset_reference_format
+    from ..data import DatasetConfig, make_dataset, save_dataset, save_dataset_reference_format
     from ..utils import resolve_device
-    from .run_pipeline import synthesis_kwargs
+    from .run_pipeline import load_speech_pool, synthesis_kwargs
 
     device = resolve_device(args.device)
     config = smoke_config() if args.smoke else DatasetConfig()
     size = min(args.dataset_size, 64) if args.smoke else args.dataset_size
     kw = synthesis_kwargs(args)
-    if args.wav_dir:
-        kw["speech_pool"] = load_wav_dir(args.wav_dir, config.audio_samples)
-        print(f"speech corpus: {kw['speech_pool'].shape[0]} wavs from {args.wav_dir}", flush=True)
+    pool = load_speech_pool(args, config)
+    if pool is not None:
+        kw["speech_pool"] = pool
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if device.type == "cuda":

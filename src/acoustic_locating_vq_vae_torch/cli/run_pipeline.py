@@ -35,7 +35,16 @@ exact, is two commands on one store: the first without ``--rir-bank`` and
 --joint-location --predict-radius --tail-weight 1.0 --rir-bank 1024
 --rir-bank-rt60s 8 --rir-bank-radii 8 --bank-pretrain-updates 350000
 --updates 400000``; one command with all of it trains stages 1-5 from the
-bank too. ``--librispeech-dir`` is not ported.
+bank too.
+
+``--librispeech-dir ROOT`` (``--librispeech-url`` split, default
+train-clean-100) takes the speech of every synthesized set from a LibriSpeech
+checkout, as ``--wav-dir`` does from a directory of wavs; the two exclude each
+other. ``--host-staged CHUNK_SIZE`` synthesizes the training set into pinned
+host memory and trains every stage from CHUNK_SIZE-row chunks on the card,
+rotated every ``--rotate-every`` steps (``Trainer.fit``); the stages share
+the one set, so ``--prune-dataset`` is ignored here and applies in the
+per-stage CLIs (``cli.train_speech`` ...).
 
 Data parallelism over N cards of one machine (the JAX ``--mesh-data``)::
 
@@ -67,9 +76,9 @@ import sys
 import numpy as np
 
 __all__ = [
-    "add_data_args", "add_mesh_args", "add_model_args", "add_synthesis_args", "build_parser", "data_parallel",
-    "dataset_seeds", "exit_on_preemption", "load_datasets", "main", "otf_kwargs",
-    "recipe_kwargs", "smoke_config", "synthesis_kwargs",
+    "add_data_args", "add_mesh_args", "add_model_args", "add_synthesis_args", "add_training_args", "build_parser",
+    "data_parallel", "dataset_seeds", "evaluation_set", "exit_on_preemption", "load_datasets", "load_speech_pool",
+    "main", "otf_kwargs", "recipe_kwargs", "smoke_config", "synthesis_kwargs",
 ]
 
 EXIT_PREEMPTED = 75  # EX_TEMPFAIL
@@ -94,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_data_args(p)
     add_model_args(p)
-    p.add_argument("--updates", type=int, default=None, help="override every stage's number of updates")
+    add_training_args(p)
     p.add_argument(
         "--preset", choices=["compat", "fixed"], default="fixed",
         help="fixed (default) = the JAX package's best validated configuration (anchored "
@@ -102,8 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
         "flatten); compat = the exact reference configuration. The library-level "
         "run_pipeline() keeps compat as its default",
     )
-    p.add_argument("--vq-ema", action="store_true",
-                   help="EMA codebook learning for the VQ stages (default: gradient codebook)")
     p.add_argument("--commitment-weight", type=float, default=None,
                    help="override the preset's fine-tune VQ anchor weight")
     p.add_argument("--joint-location", action="store_true",
@@ -116,9 +123,20 @@ def build_parser() -> argparse.ArgumentParser:
                    "per-sample angle errors to the joint loss")
     p.add_argument("--tail-frac", type=float, default=0.125,
                    help="(--tail-weight) worst fraction of the batch to weight")
+    add_synthesis_args(p)
+    add_mesh_args(p)
+    return p
+
+
+def add_training_args(p: argparse.ArgumentParser) -> None:
+    """The training flags the pipeline shares with the per-stage CLIs (the
+    JAX ``scripts/_common.py:base_parser``)."""
+    p.add_argument("--updates", type=int, default=None, help="override every stage's number of updates")
+    p.add_argument("--vq-ema", action="store_true",
+                   help="EMA codebook learning for the VQ stages (default: gradient codebook)")
     p.add_argument("--resume", action="store_true",
-                   help="crash-safe restart from the store: skip the stages whose final checkpoint "
-                   "exists and continue the first incomplete one from its newest periodic checkpoint")
+                   help="crash-safe restart from the store: a stage restarts from its newest periodic checkpoint; "
+                   "run_pipeline also skips the stages whose final checkpoint exists")
     p.add_argument("--ckpt-every", type=int, default=None,
                    help="periodic checkpoint cadence in updates (default: the tasks', 1000)")
     p.add_argument("--keep-checkpoints", type=int, default=0, metavar="N",
@@ -134,8 +152,6 @@ def build_parser() -> argparse.ArgumentParser:
         "--on-the-fly", action="store_true",
         help="synthesize a fresh training batch inside every step (infinite data; no training dataset needed)",
     )
-    add_synthesis_args(p)
-    add_mesh_args(p)
     p.add_argument(
         "--rir-bank", type=int, default=0, metavar="N_THETA",
         help="precompute an N_THETA-angle RIR bank once and draw per-sample RIRs from it (grid labels; spacing "
@@ -154,7 +170,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--bank-pretrain-updates", type=int, default=0, metavar="N",
-        help="(--on-the-fly --rir-bank, --joint-location) the validated production recipe as ONE command "
+        help="(--on-the-fly --rir-bank, the joint location stage) the validated production recipe as ONE command "
         "(VALIDATION.md run H): train the joint stage's first N updates drawing from the RIR bank, then drop the "
         "bank and polish the remaining updates with exact per-sample image-source synthesis (continuous "
         "rt60/radius randomization restored)",
@@ -170,7 +186,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="store synthesized dataset spectra in bfloat16 (half the memory; decompressed to f32 per sampled "
         "batch) — for 20k-scale sets",
     )
-    return p
+    p.add_argument(
+        "--prune-dataset", action="store_true",
+        help="keep only the SampleBatch fields THIS stage reads in the synthesized dataset (~3x less memory; "
+        "per-stage CLIs only — the pipeline shares one dataset across stages)",
+    )
+    p.add_argument(
+        "--host-staged", type=int, default=0, metavar="CHUNK_SIZE",
+        help="generate the dataset into (pinned) HOST memory and train from CHUNK_SIZE-row device-resident "
+        "chunks rotated every --rotate-every steps — for datasets beyond the card's memory (reference 20k_set). "
+        "Peak device memory is TWO chunks (the next chunk is copied from mid-window on a side stream to overlap "
+        "the transfer), so size CHUNK_SIZE accordingly",
+    )
+    p.add_argument("--rotate-every", type=int, default=500, help="chunk rotation cadence for --host-staged")
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
@@ -283,6 +311,15 @@ def add_synthesis_args(p: argparse.ArgumentParser) -> None:
         "clean/noisy curriculum that anchors the noiseless operating point (training with --snr-range alone "
         "never shows a clean sample and costs clean accuracy, VALIDATION.md run F)",
     )
+    p.add_argument(
+        "--librispeech-dir", default=None,
+        help="root of a LibriSpeech checkout to use as the speech corpus (walks <root>/LibriSpeech/<url>/... "
+        "without torchaudio; .wav via scipy, .flac via soundfile where it imports, else the built-in decoder). "
+        "Mutually exclusive with --wav-dir",
+    )
+    p.add_argument("--librispeech-url", default="train-clean-100",
+                   help="LibriSpeech split name under --librispeech-dir (reference: train-clean-100, "
+                   "genereate_dataset.py:93)")
 
 
 def smoke_config():
@@ -317,19 +354,51 @@ def dataset_seeds(seed: int):
     return tuple(int(child.generate_state(1)[0]) for child in np.random.SeedSequence(seed).spawn(2))
 
 
-def load_datasets(args):
-    """The pipeline's dataset config, training set and validation set (or
-    None) from the flags: read from ``--data-dir`` / ``--val-dir``, or
-    synthesized on ``--device`` from ``--seed`` (``--dataset-size`` /
-    ``--val-size`` rows, the synthesis flags, ``--wav-dir`` as the speech,
-    ``--dataset-bf16``), as the JAX ``scripts/_common.py:setup`` does; with
-    ``--rir-bank`` the bank is built first and the synthesized sets draw from
-    it. Under ``--on-the-fly`` no training set is made or read (None). Keeps
-    the synthesis options, the bank and the speech pool on ``args`` for
-    :func:`otf_kwargs` and :func:`recipe_kwargs`."""
+def load_speech_pool(args, config, needed: bool = True):
+    """The speech corpus of ``--wav-dir`` or ``--librispeech-dir`` (at
+    ``config.audio_samples``), announced, or None; the two flags exclude
+    each other. Where nothing is synthesized (not ``needed``) neither is
+    read, with JAX's note."""
+    from ..data import load_librispeech, load_wav_dir
+
+    wav_dir, libri_dir = args.wav_dir, args.librispeech_dir
+    if wav_dir and libri_dir:
+        raise SystemExit("--wav-dir and --librispeech-dir are mutually exclusive")
+    if (wav_dir or libri_dir) and not needed:
+        print("--wav-dir/--librispeech-dir ignored: both --data-dir and --val-dir are set, nothing is synthesized",
+              flush=True)
+        return None
+    if wav_dir:
+        pool = load_wav_dir(wav_dir, config.audio_samples)
+        src = f"wavs from {wav_dir}"
+    elif libri_dir:
+        pool = load_librispeech(libri_dir, url=args.librispeech_url, num_samples=config.audio_samples)
+        src = f"LibriSpeech {args.librispeech_url} utterances from {libri_dir}"
+    else:
+        return None
+    print(f"speech corpus: {pool.shape[0]} {src}", flush=True)
+    return pool
+
+
+def load_datasets(args, resident_fields=None):
+    """The dataset config, training set and validation set (or None) from
+    the flags, the one setup of the pipeline, every per-stage CLI and the
+    deploy CLIs: read from ``--data-dir`` / ``--val-dir``, or synthesized on
+    ``--device`` from ``--seed`` (``--dataset-size`` / ``--val-size`` rows,
+    the synthesis flags, ``--wav-dir`` or ``--librispeech-dir`` as the
+    speech, ``--dataset-bf16``), as the JAX ``scripts/_common.py:setup``
+    does; with ``--rir-bank`` the bank is built first and the synthesized
+    sets draw from it. ``--host-staged`` makes the training set a
+    :class:`..data.HostStagedDataset` (synthesized into pinned host memory,
+    or the ``--data-dir`` set moved there). ``resident_fields``, a stage's
+    fields, is what ``--prune-dataset`` keeps; without it the entry point is
+    not stage-scoped and the flag is ignored. Under ``--on-the-fly`` no
+    training set is made or read (None). Keeps the synthesis options, the
+    bank and the speech pool on ``args`` for :func:`otf_kwargs` and
+    :func:`recipe_kwargs`."""
     import torch
 
-    from ..data import DatasetConfig, SpecsDataset, load_wav_dir, make_dataset, make_rir_bank
+    from ..data import DatasetConfig, HostStagedDataset, SpecsDataset, make_dataset, make_host_dataset, make_rir_bank
     from ..utils import resolve_device
 
     config = smoke_config() if args.smoke else DatasetConfig()
@@ -338,17 +407,13 @@ def load_datasets(args):
         args.val_size = min(args.val_size, 32)
     if args.data_dir:
         ds = SpecsDataset(args.data_dir)
-        config = ds.config  # resolved before a wav pool is checked against it
+        config = ds.config  # resolved before a speech pool is checked against it
     synth_train = not args.data_dir and not args.on_the_fly
     synth_val = not args.val_dir and args.val_size > 0
+    if args.host_staged and args.on_the_fly:
+        raise SystemExit("--host-staged stages a training set, and --on-the-fly makes none")
     synth_kw = synthesis_kwargs(args)
-    pool = None
-    if args.wav_dir:
-        if synth_train or synth_val or args.on_the_fly:
-            pool = load_wav_dir(args.wav_dir, config.audio_samples)
-            print(f"speech corpus: {pool.shape[0]} wavs from {args.wav_dir}", flush=True)
-        else:
-            print("--wav-dir ignored: both --data-dir and --val-dir are set, nothing is synthesized", flush=True)
+    pool = load_speech_pool(args, config, needed=synth_train or synth_val or args.on_the_fly)
     device = resolve_device(args.device)
     # the continuous ranges before the bank's axes replace them: the exact polish of --bank-pretrain-updates
     exact_kw = dict(synth_kw)
@@ -370,20 +435,44 @@ def load_datasets(args):
     args.synth_kwargs, args.exact_synth_kwargs, args.speech_pool = dict(synth_kw), exact_kw, pool
     if args.dataset_bf16:
         synth_kw["store_dtype"] = torch.bfloat16
+    if args.prune_dataset:
+        if resident_fields is None:
+            print("--prune-dataset ignored: this entry point is not stage-scoped", flush=True)
+        else:
+            synth_kw["keep_fields"] = tuple(resident_fields)
 
-    def synthesize(seed: int, size: int):
-        generator = torch.Generator(device=device).manual_seed(seed)
-        return make_dataset(generator, size, config, speech_pool=pool, device=device, **synth_kw)
+    def generator(seed: int):
+        return torch.Generator(device=device).manual_seed(seed)
 
     seed_train, seed_val = dataset_seeds(args.seed)
     train = None
-    if not args.on_the_fly:
-        train = ds.load_all() if args.data_dir else synthesize(seed_train, args.dataset_size)
+    if args.data_dir and not args.on_the_fly:
+        train = ds.load_all()
+        if args.host_staged:
+            train = HostStagedDataset(train, args.host_staged, args.rotate_every, pin_memory=device.type == "cuda")
+    elif args.host_staged:
+        train = make_host_dataset(generator(seed_train), args.dataset_size, config, chunk_size=args.host_staged,
+                                  rotate_every=args.rotate_every, speech_pool=pool, device=device, **synth_kw)
+    elif synth_train:
+        train = make_dataset(generator(seed_train), args.dataset_size, config, speech_pool=pool, device=device,
+                             **synth_kw)
     if args.val_dir:
         val = SpecsDataset(args.val_dir).load_all()
+    elif synth_val:
+        val = make_dataset(generator(seed_val), args.val_size, config, speech_pool=pool, device=device, **synth_kw)
     else:
-        val = synthesize(seed_val, args.val_size) if synth_val else None
+        val = None
     return config, train, val
+
+
+def evaluation_set(train, val):
+    """The set the final evaluations read: the validation set, else the
+    training set (a host-staged one's host arrays)."""
+    from ..data import HostStagedDataset
+
+    if val is not None:
+        return val
+    return train.arrays if isinstance(train, HostStagedDataset) else train
 
 
 def otf_kwargs(args) -> dict:
@@ -460,7 +549,7 @@ def _train_and_evaluate(args, dp) -> None:
 
     fixed = args.preset == "fixed"
     flatten = flatten if flatten is not None else not fixed
-    data = val if val is not None else train
+    data = evaluation_set(train, val)
     task = LocationTask(
         config=config, width_scale=args.width_scale,
         input_mode=args.location_input_mode or ("quantized" if fixed else "encodings"),

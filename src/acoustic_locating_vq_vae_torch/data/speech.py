@@ -11,7 +11,10 @@ reference draws LibriSpeech utterances through torchaudio
     ``torch.Generator``) and a deterministic body (:func:`speech_from_draws`),
     so the same draws give the same waveforms on any device;
   * :func:`load_wav_dir`: 16 kHz wavs from a directory (scipy), the corpus
-    the CLIs take as ``--wav-dir``.
+    the CLIs take as ``--wav-dir``; :func:`load_librispeech`: the utterances
+    of a LibriSpeech checkout (JAX :115-183), ``.wav`` through scipy and
+    ``.flac`` through soundfile where it imports, else the built-in decoder
+    (:mod:`.flac`), the corpus the CLIs take as ``--librispeech-dir``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["SpeechDraws", "load_wav_dir", "speech_draws", "speech_from_draws", "synthetic_speech_batch"]
+__all__ = [
+    "SpeechDraws", "load_librispeech", "load_wav_dir", "speech_draws", "speech_from_draws", "synthetic_speech_batch",
+]
 
 N_HARMONICS = 12
 
@@ -125,25 +130,76 @@ def synthetic_speech_batch(
     return speech_from_draws(speech_draws(generator, batch, num_samples, fs), fs)
 
 
+def _read_wav(path: str) -> np.ndarray:
+    """A wav's samples, integer PCM scaled by its type's maximum."""
+    from scipy.io import wavfile
+
+    _, data = wavfile.read(path)
+    if data.dtype.kind == "i":
+        data = data.astype(np.float32) / np.iinfo(data.dtype).max
+    return data
+
+
+def _pool_row(data, num_samples: int) -> np.ndarray:
+    """One pool row: float32, mono-mixed, zero-padded or cropped to ``num_samples``."""
+    data = np.asarray(data, np.float32)
+    if data.ndim > 1:
+        data = data.mean(axis=1)
+    if len(data) < num_samples:
+        data = np.pad(data, (0, num_samples - len(data)))
+    return data[:num_samples]
+
+
 def load_wav_dir(path: str, num_samples: int, limit: Optional[int] = None) -> np.ndarray:
     """(n, num_samples) float32 from every wav in ``path``, sorted by name,
     mono-mixed, cropped or zero-padded."""
-    from scipy.io import wavfile
-
     files = sorted(f for f in os.listdir(path) if f.lower().endswith(".wav"))
     if limit:
         files = files[:limit]
-    out = []
-    for f in files:
-        _, data = wavfile.read(os.path.join(path, f))
-        if data.dtype.kind == "i":
-            data = data.astype(np.float32) / np.iinfo(data.dtype).max
-        data = np.asarray(data, np.float32)
-        if data.ndim > 1:
-            data = data.mean(axis=1)
-        if len(data) < num_samples:
-            data = np.pad(data, (0, num_samples - len(data)))
-        out.append(data[:num_samples])
+    out = [_pool_row(_read_wav(os.path.join(path, f)), num_samples) for f in files]
     if not out:
         raise FileNotFoundError(f"no wav files in {path}")
+    return np.stack(out)
+
+
+def load_librispeech(root: str, url: str = "train-clean-100", num_samples: int = 80000,
+                     limit: Optional[int] = None) -> np.ndarray:
+    """(n, num_samples) float32 speech pool from a LibriSpeech checkout, the
+    reference's corpus (genereate_dataset.py:93), without torchaudio. Walks
+
+        <root>/LibriSpeech/<url>/<speaker>/<chapter>/<spk>-<chp>-<utt>.flac
+
+    (or ``<root>/<url>/...``) in path order; ``.wav`` through scipy, ``.flac``
+    through soundfile where it imports, else the built-in decoder
+    (:func:`.flac.read_flac`, CRC-checked). Each utterance is mono-mixed and
+    zero-padded or cropped to ``num_samples``: the pool of
+    :func:`load_wav_dir`, for ``make_dataset(speech_pool=...)``."""
+    candidates = [os.path.join(root, "LibriSpeech", url), os.path.join(root, url)]
+    base = next((c for c in candidates if os.path.isdir(c)), None)
+    if base is None:
+        raise FileNotFoundError(f"no LibriSpeech split {url!r} under {root!r} (tried {candidates})")
+    files = []
+    for dirpath, _dirnames, filenames in sorted(os.walk(base)):
+        for f in sorted(filenames):
+            if f.lower().endswith((".flac", ".wav")):
+                files.append(os.path.join(dirpath, f))
+    if limit:
+        files = files[:limit]
+    if not files:
+        raise FileNotFoundError(f"no .flac/.wav utterances under {base}")
+    try:
+        import soundfile  # optional: FLAC through libsndfile
+    except ImportError:
+        soundfile = None
+    out = []
+    for path in files:
+        if path.lower().endswith(".wav"):
+            data = _read_wav(path)
+        elif soundfile is not None:
+            data, _ = soundfile.read(path, dtype="float32")
+        else:
+            from .flac import read_flac
+
+            data, _ = read_flac(path)
+        out.append(_pool_row(data, num_samples))
     return np.stack(out)

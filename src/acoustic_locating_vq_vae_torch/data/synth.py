@@ -49,6 +49,7 @@ __all__ = [
     "SynthDraws",
     "add_sensor_noise",
     "bank_thetas",
+    "dataset_batches",
     "draw_synthesis",
     "geometry_boxes",
     "make_dataset",
@@ -568,6 +569,41 @@ def prune_batch(batch: SampleBatch, keep_fields, store_dtype=None) -> SampleBatc
     return SampleBatch(*(prune(name, a) for name, a in zip(SampleBatch._fields, batch)))
 
 
+def dataset_batches(
+    generator: torch.Generator,
+    size: int,
+    config: DatasetConfig = DatasetConfig(),
+    batch: int = 32,
+    speech_pool=None,
+    keep_fields=None,
+    store_dtype=None,
+    device="cuda",
+    **kwargs,
+):
+    """Yield ``(row, part)``: the batches of a ``size``-sample dataset
+    synthesized on ``device`` in turn from ``generator``, ``part`` holding
+    rows ``row`` to ``row + len(part)``; the one loop of :func:`make_dataset`
+    and :func:`.dataset.make_host_dataset`, whose arguments these are."""
+    device = resolve_device(device)
+    if size <= 0:
+        raise ValueError(f"dataset size must be positive, got {size}")
+    pool = None
+    if speech_pool is not None:
+        pool = torch.as_tensor(np.asarray(speech_pool, np.float32))
+        if pool.shape[1] != config.audio_samples:
+            raise ValueError(f"speech_pool length {pool.shape[1]} != config.audio_samples {config.audio_samples}")
+        pool = pool.to(device)
+    for i in range(0, size, batch):
+        b = min(batch, size - i)
+        kw = dict(kwargs)
+        if pool is not None:
+            kw["speech"] = pool[torch.randint(pool.shape[0], (b,), generator=generator, device=generator.device)]
+        made = synthesize_batch(generator, b, config, device=device, **kw)
+        if keep_fields is not None or store_dtype is not None:
+            made = prune_batch(made, keep_fields if keep_fields is not None else SPEC_FIELDS, store_dtype)
+        yield i, made
+
+
 def make_dataset(
     generator: torch.Generator,
     size: int,
@@ -591,26 +627,11 @@ def make_dataset(
     ``keep_fields`` / ``store_dtype``: resident-storage compression as
     :func:`prune_batch`, applied batch by batch, so the transient footprint
     stays one batch."""
-    device = resolve_device(device)
-    if size <= 0:
-        raise ValueError(f"dataset size must be positive, got {size}")
-    pool = None
-    if speech_pool is not None:
-        pool = torch.as_tensor(np.asarray(speech_pool, np.float32))
-        if pool.shape[1] != config.audio_samples:
-            raise ValueError(f"speech_pool length {pool.shape[1]} != config.audio_samples {config.audio_samples}")
-        pool = pool.to(device)
     buf = None
-    for i in range(0, size, batch):
-        b = min(batch, size - i)
-        kw = dict(kwargs)
-        if pool is not None:
-            kw["speech"] = pool[torch.randint(pool.shape[0], (b,), generator=generator, device=generator.device)]
-        made = synthesize_batch(generator, b, config, device=device, **kw)
-        if keep_fields is not None or store_dtype is not None:
-            made = prune_batch(made, keep_fields if keep_fields is not None else SPEC_FIELDS, store_dtype)
+    for i, made in dataset_batches(generator, size, config, batch, speech_pool, keep_fields, store_dtype, device,
+                                   **kwargs):
         if buf is None:
             buf = made.map(lambda a: a.new_zeros((size,) + tuple(a.shape[1:])))
         for dst, part in zip(buf, made):
-            dst[i : i + b] = part
+            dst[i : i + part.shape[0]] = part
     return buf

@@ -182,23 +182,49 @@ def shard_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor]) -> Dic
     return {k: (shards[k].take(v) if k in shards else v) for k, v in state.items()}
 
 
-def _optimizer_shards(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict[int, Optional[ModelShard]]:
-    """Optimizer state index -> the split of its parameter (None: whole)."""
+def _optimizer_shards(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """Optimizer state index -> (its parameter, the parameter's split or None: whole)."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
-    return {i: getattr(p, "model_shard", None) for i, p in enumerate(params)}
+    return {i: (p, getattr(p, "model_shard", None)) for i, p in enumerate(params)}
+
+
+def _split_state(st: dict, param: torch.Tensor, shard: Optional[ModelShard], whole: bool) -> dict:
+    """A split parameter's optimizer state ``st`` with every tensor gathered
+    whole (``whole`` False: ``st`` holds the rank's blocks) or cut to the
+    rank's block (``whole``: ``st`` holds whole tensors). Each must have the
+    parameter's shape, the layout of Adam's and AdamW's moments, or this
+    raises."""
+    if shard is None:
+        return st
+    want = list(param.shape)
+    move = shard.gather
+    if whole:
+        want[shard.dim] = shard.full
+        move = shard.take
+    out = {}
+    for k, v in st.items():
+        if torch.is_tensor(v) and v.dim() > 0:
+            if list(v.shape) != want:
+                raise ValueError(
+                    f"optimizer state {k!r} of shape {tuple(v.shape)} for a parameter split over the model axis "
+                    f"(shape {tuple(want)}): a whole-tensor checkpoint under model_parallel needs per-parameter "
+                    "state of the parameter's shape, as Adam and AdamW keep it"
+                )
+            v = move(v)
+        out[k] = v
+    return out
 
 
 @torch.no_grad()
 def full_optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> dict:
-    """``optimizer.state_dict()`` with the moments of every sharded
-    parameter gathered whole over the model group."""
+    """``optimizer.state_dict()`` with the state of every sharded parameter
+    gathered whole over the model group."""
     sd = optimizer.state_dict()
     shards = _optimizer_shards(model, optimizer)
     state = {}
     for i, st in sd["state"].items():
-        shard = shards.get(i)
-        state[i] = {k: (shard.gather(v) if shard is not None and torch.is_tensor(v) and v.dim() > 0 else v)
-                    for k, v in st.items()}
+        p, shard = shards[i]
+        state[i] = _split_state(st, p, shard, whole=False)
     return {**sd, "state": state}
 
 
@@ -207,7 +233,6 @@ def shard_optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer, sd
     shards = _optimizer_shards(model, optimizer)
     state = {}
     for i, st in sd["state"].items():
-        shard = shards.get(int(i))
-        state[i] = {k: (shard.take(v) if shard is not None and torch.is_tensor(v) and v.dim() > 0 else v)
-                    for k, v in st.items()}
+        p, shard = shards[int(i)]
+        state[i] = _split_state(st, p, shard, whole=True)
     return {**sd, "state": state}

@@ -3,9 +3,10 @@
 Counterpart of ``acoustic_locating_vq_vae_tpu/train/loop.py``: ``Preempted``
 (:47-62), ``TrainHistory`` (:89-130), the ``Trainer``'s state, optimizer and
 frozen composite (:133-319), its step (:423-475), ``request_preemption`` and
-``fit`` (:502-737), on-the-fly synthesis (:150-190, :477-500), the resident
-field check (:739-753), the frozen-latent cache (:609-633, :783-813) and the
-checkpoints (:817-918):
+``fit`` (:502-737), on-the-fly synthesis (:150-190, :477-500), host-staged
+data (:557-575, :657-697), the resident field check (:739-753), the
+frozen-weight guard (:198-212, :619-620, :755-781), the frozen-latent cache
+(:609-633, :783-813) and the checkpoints (:817-918):
 
 * the dataset is resident on the trainer's device; each step samples a fresh
   batch without replacement (the reference's fresh-shuffle
@@ -17,11 +18,28 @@ checkpoints (:817-918):
   in ``synth_kwargs`` are moved to the device once, when the trainer is made
   or :meth:`Trainer.set_synthesis` is called, and the training set is unused
   (it may be None); eval steps still sample the resident validation set;
-* a train step runs the task's loss, its backward and one Adam update
-  (``torch.optim.Adam(lr)``: the same update as ``optax.adam(lr)``, eps 1e-8
-  outside the square root, bias-corrected). A frozen parameter ends the step
-  with no gradient, which Adam skips: the exact zero update that optax gives
-  a zero gradient;
+* a :class:`..data.HostStagedDataset` as the training set stays in host
+  memory: the trainer holds one chunk of it on the device (this rank's block
+  of it under a mesh), samples from it with the unchanged sampler, and at
+  step ``i`` holds chunk ``i // rotate_every`` (cyclic), so a run rotates at
+  steps R, 2R, ... as JAX's does. From step ``max(1, (R + 1) // 2)`` of a
+  window it copies the next chunk from pinned memory on a side CUDA stream
+  (``non_blocking``; a CUDA trainer refuses a set that is not pinned, whose
+  copies would be synchronous); at the rotation the compute stream waits on that copy's
+  event, and the chunk's tensors are recorded on the compute stream, so
+  their memory is not reused while a queued step still reads them. The
+  device holds two chunks at most. The schedule is a function of the step,
+  so a resume holds the chunk the uninterrupted run held (JAX restarts at
+  chunk 0); a rotation to the chunk already held (one chunk in all) keeps it;
+  with ``cache_frozen`` each new chunk's cache is built at its rotation;
+* a train step runs the task's loss, its backward and one optimizer update:
+  by default ``torch.optim.Adam(lr)`` (the same update as ``optax.adam(lr)``,
+  eps 1e-8 outside the square root, bias-corrected), or the ``optimizer``
+  factory's. A frozen parameter ends the step with no gradient, which torch's
+  optimizers skip (weight decay included): the exact zero update that optax
+  gives a zero gradient. With a supplied optimizer and the cache, ``fit``
+  still checks that the cached branches' weights stayed bitwise constant, as
+  JAX's does;
 * a stage that reads a frozen module outside its model gets it from its task
   (``Task.build_frozen``: the location stage's RIR branch of
   ``composite_params``), held in eval mode outside the optimizer; the task's
@@ -79,8 +97,6 @@ checkpoints (:817-918):
   (``parallel/tensor.py``), each rank holding its block of them and of Adam's
   state. A checkpoint holds whole tensors whatever the split, so a store
   written under one model axis size resumes under another.
-
-Host-staged data comes in a later slice.
 """
 
 from __future__ import annotations
@@ -89,12 +105,12 @@ import contextlib
 import signal
 import time
 import warnings
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..data.dataset import sample_without_replacement
+from ..data.dataset import HostStagedDataset, sample_without_replacement
 from ..data.synth import SampleBatch, synthesize_batch
 from ..ops.jitter import Jitter
 from ..models.conv_vqvae import sequence_sharding
@@ -110,6 +126,7 @@ from ..utils.profiling import trace
 from .tasks import Task, resolved_vq_flatten
 
 Cache = Dict[str, torch.Tensor]
+OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
 
 __all__ = ["Trainer", "TrainHistory", "Preempted", "checkpoint_metadata"]
 
@@ -221,6 +238,12 @@ class Trainer:
     ones (finals are kept). ``profile_dir`` traces steps ``start + 2`` to
     ``start + 7`` of :meth:`fit` into ``<profile_dir>/<task name>.json``.
 
+    ``optimizer`` is a factory that binds a torch optimizer to the
+    parameters the trainer builds (default ``torch.optim.Adam(params,
+    lr=task.learning_rate)``). Under ``model_parallel`` its per-parameter
+    state tensors must have their parameter's shape (Adam, AdamW), since a
+    checkpoint gathers them whole.
+
     ``mesh`` (a handle of ``parallel.init_data_parallel`` or
     ``parallel.make_mesh``) trains this rank's share of every batch over its
     data axis (see the module docstring), shards the time axis of a task with
@@ -247,6 +270,7 @@ class Trainer:
         synth_kwargs: Optional[Mapping] = None,
         mesh: Optional[DataParallel] = None,
         model_parallel: bool = False,
+        optimizer: Optional[OptimizerFactory] = None,
     ):
         self.task = task
         self.dp = mesh if mesh is not None and mesh.distributed else None
@@ -290,10 +314,14 @@ class Trainer:
                 check_replicated(self.frozen_rir, self.dp, "frozen weights")
         if model_parallel:
             shard_model(self.model, self.dp)
-        # model.parameters() yields a tied residual block once, so Adam's
-        # state, keyed by parameter order, is the same for every trainer of
-        # the task
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=task.learning_rate)
+        # model.parameters() yields a tied residual block once, so the
+        # optimizer's state, keyed by parameter order, is the same for every
+        # trainer of the task. The cache assumes zero updates for the frozen
+        # branches, which Adam gives; a supplied optimizer is checked (fit).
+        self._default_optimizer = optimizer is None
+        params = self.model.parameters()
+        self.optimizer = (torch.optim.Adam(params, lr=task.learning_rate) if optimizer is None
+                          else optimizer(params))
         if self.dp is not None:
             # the explicit-collective step (parallel/dp_step.py), on a (batch, cache rows) pair
             self._dp_step = make_dp_train_step(lambda bc: self._loss(bc[0], True, bc[1]), self.optimizer, self.dp)
@@ -301,6 +329,8 @@ class Trainer:
         self._preempt_requested = False
         # while fit runs: the rows of each set it holds (its speech_spec's id) -> the whole set's rows
         self._held: Dict[int, int] = {}
+        # the chunk of a host-staged set that fit holds (its index mod the chunk count), else None
+        self.resident_chunk: Optional[int] = None
 
     @property
     def _seq_sharded(self) -> bool:
@@ -544,9 +574,11 @@ class Trainer:
         save_final: bool = True,
     ) -> TrainHistory:
         """Run the stage from the trainer's step count up to ``num_updates`` (the
-        task's count when 0 or None) over the resident ``train_data``, or,
-        ``on_the_fly``, over synthesized batches (``train_data`` is unused
-        and may be None, ``val_data`` is required); with ``val_data`` and
+        task's count when 0 or None) over the resident ``train_data``, over
+        the chunks of a :class:`..data.HostStagedDataset` (see the module
+        docstring), or, ``on_the_fly``, over synthesized batches
+        (``train_data`` is unused and may be None, ``val_data`` is
+        required); with ``val_data`` and
         ``val_replaces_train`` every ``eval_every``-th step is an eval step
         on it instead. With ``cache_frozen`` and a task that supports it, the
         cache of each resident dataset is built first.
@@ -575,9 +607,13 @@ class Trainer:
                 signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
             self._preempt_requested = False
             self._held.clear()
+            self.resident_chunk = None
 
     def _fit(self, train_data, val_data, num_updates, resume, save_final) -> TrainHistory:
         num_updates = num_updates or self.task.num_updates
+        host = train_data if isinstance(train_data, HostStagedDataset) else None
+        if host is not None and self.on_the_fly:
+            raise ValueError("host-staged train data is pointless with on_the_fly")
         if train_data is None and not self.on_the_fly:
             raise ValueError("train_data=None requires on_the_fly=True")
         if self.on_the_fly and val_data is None:
@@ -587,9 +623,19 @@ class Trainer:
             if restored is not None and self.verbose:
                 print(f"[{self.task.name}] resumed at step {restored}", flush=True)
         caching = self.cache_frozen and self.task.supports_cache
+        frozen_before = self._frozen_fingerprint() if caching and not self._default_optimizer else None
         train_cache = None
+        stager = None
         if self.on_the_fly:
             train_data = None
+        elif host is not None:
+            stager = _ChunkStager(self, host)
+            train_data = stager.hold(self.step_count)
+            self._check_resident_fields(train_data)
+            train_cache = self.build_cache(train_data) if caching else None
+            if self.verbose:
+                print(f"[{self.task.name}] host-staged dataset: {host.size} rows, {host.num_chunks} chunks of "
+                      f"{host.chunk_size} resident, rotating every {host.rotate_every} steps", flush=True)
         else:
             train_data = self._hold_on_device(train_data)
             self._check_resident_fields(train_data)
@@ -614,6 +660,11 @@ class Trainer:
                         # the periodic tag convention, so restore_latest finds it
                         self.save_checkpoint(tag=f"{self.task.name}_{i}")
                     raise Preempted(self.task.name, i)
+                if stager is not None:
+                    rotated = stager.before_step(i)
+                    if rotated is not None:
+                        train_data = rotated
+                        train_cache = self.build_cache(train_data) if caching else None
                 if self.profile_dir and i == trace_window[0]:
                     tracing.enter_context(trace(self.profile_dir, self.task.name))
                 is_val = (
@@ -645,9 +696,39 @@ class Trainer:
                     print("  ".join(parts), flush=True)
                 if self.store is not None and (i + 1) % self.task.ckpt_every == 0:
                     self.save_checkpoint(tag=f"{self.task.name}_{i + 1}")
+        if frozen_before is not None:
+            self._check_frozen_constant(frozen_before)
         if self.store is not None and save_final:
             self.save_checkpoint(tag=self.task.name, final=True)
         return history
+
+    def _frozen_fingerprint(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """CPU copies of the weights the frozen-latent cache assumes constant
+        (the task's ``cached_frozen_subtrees``, e.g. the echoed stage's
+        branches). Needed only with a supplied optimizer: the cache is valid
+        where a parameter without a gradient gets no update, which Adam
+        guarantees and an optimizer that decays every parameter it holds
+        does not."""
+        out = {}
+        for name in getattr(self.task, "cached_frozen_subtrees", ()):
+            module = getattr(self.model, name, None)
+            if module is not None:
+                out[name] = {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+        return out
+
+    def _check_frozen_constant(self, before: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Raise JAX's error where a cached branch's weights changed bitwise."""
+        after = self._frozen_fingerprint()
+        as_bytes = lambda t: t.reshape(-1).view(torch.uint8)
+        for name, tensors in before.items():
+            for k, b in tensors.items():
+                if not torch.equal(as_bytes(after[name][k]), as_bytes(b)):
+                    raise RuntimeError(
+                        f"cache_frozen=True but frozen subtree {name!r} changed during training: the supplied "
+                        "optimizer does not map zero grads to zero updates (e.g. weight decay), so the "
+                        "frozen-latent cache is stale. Use torch.optim.Adam or leave the frozen subtrees out of "
+                        "the optimizer."
+                    )
 
     # ----------------------------------------------------------- checkpoints
 
@@ -761,3 +842,69 @@ def _ckpt_rank(meta: dict):
     wall-clock steps and a retrain into a store still holding a previous
     run's higher-step tags; then save time, then step."""
     return (meta.get("seq", -1), meta.get("time", meta["step"]))
+
+
+class _ChunkStager:
+    """The chunk of a host-staged set that :meth:`Trainer.fit` holds on the
+    device: chunk ``step // rotate_every`` (cyclic) at every step, the next
+    one copied on a side stream from the window's prefetch offset (see the
+    module docstring). On the CPU the chunks are views of the host set."""
+
+    def __init__(self, trainer: Trainer, host: HostStagedDataset):
+        self.trainer, self.host = trainer, host
+        self.every = int(host.rotate_every)
+        self.prefetch_at = max(1, (self.every + 1) // 2)  # JAX loop.py:658
+        self.on_card = trainer.device.type == "cuda"
+        if self.on_card and not all(a.is_pinned() for a in host.arrays if a.numel()):
+            # from pageable memory a non_blocking copy is staged and synchronous: the prefetch would not overlap
+            raise ValueError("a host-staged set on a CUDA trainer must be in pinned memory: build it with "
+                             "make_host_dataset, or HostStagedDataset(..., pin_memory=True)")
+        self.stream = torch.cuda.Stream(trainer.device) if self.on_card else None
+        self.held: Optional[SampleBatch] = None
+        self.next = None  # (chunk index, the chunk on the device, the copy's event)
+
+    def _copy(self, c: int, side: bool):
+        """Chunk ``c``'s rows this rank holds, on the trainer's device: on the
+        side stream with an event where ``side``, else in stream order."""
+        rows = self.trainer.hold(self.host.chunk(c))
+        if not (side and self.on_card):
+            return self.trainer.to_device(rows), None
+        with torch.cuda.stream(self.stream):
+            chunk = rows.map(lambda a: a.to(self.trainer.device, non_blocking=True))
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return chunk, event
+
+    def hold(self, step: int) -> SampleBatch:
+        """Hold the chunk of ``step``: the prefetched one once the compute
+        stream has waited on its copy, else one copied now; registered with
+        the trainer's sampler, the previous one released."""
+        c = step // self.every
+        if self.next is not None and self.next[0] % self.host.num_chunks == c % self.host.num_chunks:
+            _, chunk, event = self.next
+            if event is not None:
+                compute = torch.cuda.current_stream(self.trainer.device)
+                compute.wait_event(event)
+                for a in chunk:
+                    a.record_stream(compute)  # its memory waits for the steps queued on it
+        else:
+            chunk, _ = self._copy(c, side=False)
+        self.next = None
+        held = self.trainer._held
+        if self.held is not None:
+            held.pop(id(self.held.speech_spec), None)
+        held[id(chunk.speech_spec)] = self.host.chunk_size
+        self.held = chunk
+        self.trainer.resident_chunk = c % self.host.num_chunks
+        return chunk
+
+    def before_step(self, step: int) -> Optional[SampleBatch]:
+        """Before ``step``: the new chunk where the step opens a window with
+        another chunk, else None (after starting the next chunk's copy from
+        the window's prefetch offset)."""
+        n, c = self.host.num_chunks, step // self.every
+        if c % n != self.trainer.resident_chunk:
+            return self.hold(step)
+        if step % self.every >= self.prefetch_at and self.next is None and (c + 1) % n != c % n:
+            self.next = (c + 1, *self._copy(c + 1, side=True))
+        return None

@@ -23,7 +23,9 @@ data-parallel paths that had no test: the on-the-fly bank-then-exact joint
 recipe (its ranks' weights bitwise equal, a preempted recipe resumed bitwise
 at the same world size) and a bf16 step, held to the single-process bf16 step
 by ``test_torch_bf16.py``'s criterion (the two-rank step within half of the
-single process's bf16 distance from its float32 step).
+single process's bf16 distance from its float32 step). The spawn also fits
+over a host-staged set, each rank holding its block of every chunk, against
+the single process's host-staged fit.
 
 The workers import torch and the port only (this module imports JAX inside
 its fixtures)."""
@@ -146,6 +148,16 @@ def _recipe(root, store, inputs, dp=None, **kw):
                             mesh=dp, **kw)[0]
 
 
+def _host_fit(rows, dp=None):
+    """5 steps over a host-staged set of 12 rows in chunks of B, rotated
+    every 2 steps: the losses and the weights."""
+    from acoustic_locating_vq_vae_torch.data import HostStagedDataset
+
+    tr = Trainer(_speech_task(), device="cpu", seed=5, verbose=False, mesh=dp)
+    history = tr.fit(HostStagedDataset(_torch_batch(rows), B, rotate_every=2), num_updates=5)
+    return {"loss": [float(v) for v in history.train["loss"]], "state": tr.model.state_dict()}
+
+
 def _run_steps(tr, batch, cached=False):
     """STEPS train steps on ``batch``; the metrics of each, the state dict
     and the gradients after them."""
@@ -235,6 +247,9 @@ def _worker(rank: int, port: int, root: Path) -> None:
     out["fit_bitwise"] = all(torch.equal(a, b) for a, b in zip(whole.model.state_dict().values(),
                                                                resumed.model.state_dict().values()))
     out["fit_state"] = whole.model.state_dict()
+
+    # a host-staged fit: each rank holds its block of every chunk (the batch is the chunk)
+    out["host"] = _host_fit(inputs["host_rows"], dp)
 
     # a bf16 step
     out["bf16"] = _one_step(_trainer(SpeechVQVAETask(width_scale=WS, batch_size=B, compute_dtype="bfloat16"),
@@ -420,7 +435,8 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp")
     weights = _jax_weights()
     batches = {"speech_batch": _batch(B, 201, T_SPEECH, 20), "odd_batch": _batch(3, 201, T_SPEECH, 21),
-               "echoed_batch": _batch(B, ECHOED_CFG.num_freq, ECHOED_CFG.num_frames, 22)}
+               "echoed_batch": _batch(B, ECHOED_CFG.num_freq, ECHOED_CFG.num_frames, 22),
+               "host_rows": _batch(12, 201, 8, 23)}
     otf = {"otf_bank": port_data.make_rir_bank(OTF_CFG, n_theta=8, chunk=OTF_CHUNK, batch=4, device="cpu"),
            "otf_val": port_data.make_dataset(torch.Generator().manual_seed(1), 8, OTF_CFG, batch=8, device="cpu",
                                              rir_chunk=OTF_CHUNK),
@@ -450,6 +466,7 @@ def runs(tmp_path_factory):
                 "echoed": _run_steps(_trainer(_echoed_task(), weights["echoed"][2]), echoed),
                 "echoed_cached": _run_steps(_trainer(_echoed_task(), weights["echoed"][2]), echoed, cached=True),
             }
+            ref["host"] = _host_fit(batches["host_rows"])
             for dtype in ("bfloat16", "float32"):
                 ref[f"one_step_{dtype}"] = _one_step(
                     _trainer(SpeechVQVAETask(width_scale=WS, batch_size=B, compute_dtype=dtype), weights["speech"][2]),
@@ -599,6 +616,17 @@ def test_dp_fit_preempted_on_one_rank_and_resumed_is_bitwise(runs):
     single = Trainer(task, device="cpu", seed=3, verbose=False, checkpoint_dir=str(root / "fit_cut"))
     with pytest.raises(ValueError, match="same world size"):
         single.restore_latest()
+
+
+def test_dp_host_staged_fit_matches_single_process(runs):
+    """Two ranks over the chunks of a host-staged set, each holding its
+    block of the chunk, train as one process does: every step's loss and
+    the weights within DP_RTOL, the ranks' weights bitwise equal."""
+    got, ref, _, _ = runs
+    _close(got[0]["host"]["loss"], ref["host"]["loss"], DP_RTOL, what="loss")
+    for k, w in ref["host"]["state"].items():
+        _close(got[0]["host"]["state"][k], w, DP_RTOL, 1e-7, what=k)
+        assert torch.equal(got[0]["host"]["state"][k], got[1]["host"]["state"][k]), k
 
 
 def test_replicas_must_start_equal(runs):

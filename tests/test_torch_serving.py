@@ -171,7 +171,8 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     """Neither the port's package (parallel/, eval/latents.py,
-    eval/torch_import.py and cli/echoe_transfer.py among it) nor chip_smoke.py
+    eval/torch_import.py, cli/echoe_transfer.py, its own copies of data/flac.py
+    and data/collate.py and the stage CLIs among it) nor chip_smoke.py
     nor bench_gpu.py imports jax, flax, the JAX package or bench.py, by any
     import form."""
     sources = sorted((REPO / "src" / "acoustic_locating_vq_vae_torch").rglob("*.py"))
@@ -179,7 +180,10 @@ def test_port_imports_no_jax():
     assert len(sources) > 10
     names = {p.relative_to(REPO).as_posix() for p in sources}
     for new in ("parallel/__init__.py", "parallel/mesh.py", "parallel/dp_step.py", "eval/latents.py",
-                "eval/torch_import.py", "cli/echoe_transfer.py"):
+                "eval/torch_import.py", "cli/echoe_transfer.py", "data/flac.py", "data/collate.py",
+                "cli/train_speech.py", "cli/train_rir.py", "cli/train_echoed_speech.py",
+                "cli/encoder_training_echoed_model.py", "cli/train_location.py", "cli/test_data_set.py",
+                "cli/summarize_sweep.py"):
         assert f"src/acoustic_locating_vq_vae_torch/{new}" in names, new
     banned = {"jax", "jaxlib", "flax", "acoustic_locating_vq_vae_tpu", "bench"}
     for path in sources:
