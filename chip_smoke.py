@@ -10,6 +10,7 @@
     python3 chip_smoke.py --data-parallel  # phases 1 and 15, then the kernels' checks and timings
     python3 chip_smoke.py --mesh      # phases 1, 2 and 16, then the accumulation kernel's check
     python3 chip_smoke.py --host-staged  # phases 1, 2 and 17, then the kernels' checks and timings
+    python3 chip_smoke.py --tools     # phases 1 and 18 only
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -195,6 +196,26 @@ nothing of JAX. Phases, one line each (more for detail):
    --librispeech-dir on a LibriSpeech layout of .wav utterances the phase
    writes.
 
+18. the last modules of the JAX package and the tools (``tools_phase``): (a)
+   16 RIRs on run J's annulus (0.45-1.45 m about the receiver, T60 0.4 s,
+   6,400 taps) from ``generate_rir_batch`` on the card in float32 without
+   cull, with the room cull and with the geometry-boxed cull, each within
+   SYNTH_LIMITS["rir"] of the port's native C++ library in float64 on the
+   host (which must run on more than one OpenMP thread where the host has
+   more than one CPU), then ``scripts/bench_rir_cull.py``'s A/B of the three
+   at B = 32, interleaved, in RIRs/s beside the native library's; (b)
+   ``cli.impulse_response_demo`` on the card with and without --native:
+   exit 0, the files written, the two RIRs within the JAX package's
+   native-vs-XLA tolerance (a missing matplotlib accepted with its
+   ImportError's message only); (c) seeded full-width weights (the speech
+   VQ-VAE with an EMA codebook, the echoed composite, the frozen location
+   head) through ``eval.torch_export``, ``save_reference_state_dicts``,
+   ``torch.load`` and ``eval.torch_import``'s build functions: the frozen
+   localizer served at B = 8 on the card from the rebuilt modules bitwise the
+   original's, its vq_nearest launches counted; (d) ``cli.make_shifted_corpus
+   --n 4`` into ``load_wav_dir`` and one ``synthesize_batch`` on the card,
+   every field finite.
+
 Phase 2 also holds the registered operator (``torch.ops.acoustic_locating_vq_vae_torch.vq_nearest``,
 through which the main path reaches the kernel) equal to the wrapper, and
 phase 4 reads its dispatch cost beside the B = 8 serve latency.
@@ -213,7 +234,7 @@ calls, which for a call of tens of microseconds is the host's launch rate).
 The ``kernels`` line carries the card's time, one entry for each kernel and
 shape that was both timed and run by the main path's checked and timed runs
 (phases 3, 6 to 10, 12, 13 and 14's served artifacts), with the launches
-counted at that shape (``count_by_shape``); phase 15's and 17's runs count too.
+counted at that shape (``count_by_shape``); phase 15's, 17's and 18's runs count too.
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -359,6 +380,17 @@ HOST_COPY_ROWS = 2000  # (d): JAX's default chunk, about 2.4 GB at full width
 HOST_COPY_EVERY = 8  # (d): the prefetch starts 4 steps into a window
 HOST_SYNC_STEPS = 5  # (d): steps with a synchronous rotation each
 HOST_CLI_FLAGS = ("--updates", "2", "--dataset-size", "64", "--val-size", "16", "--vq-flatten", "vectors")
+TOOLS = "--tools"  # `python3 chip_smoke.py --tools`: phases 1 and 18 only
+TOOLS_ROOT = PIPE_ROOT / "tools"
+TOOLS_SEED = 180
+TOOLS_WIDTH = 1.0  # width_scale of phase 18 (c)'s models: full width
+TOOLS_CONFIG = None  # None: the dataset's full geometry
+TOOLS_ANNULUS = (0.45, 1.45)  # run J's source radii about the receiver, m (scripts/bench_rir_cull.py)
+TOOLS_SOURCES = 16  # (a): RIRs held against the native float64 library
+TOOLS_AB_B = 32  # (a): the cull A/B's batch, scripts/bench_rir_cull.py's
+TOOLS_AB_ROUNDS = 10  # (a): interleaved calls a variant
+TOOLS_SERVE_B = 8  # (c): the frozen localizer's batch
+TOOLS_CORPUS_N = 4  # (d): utterances of the shifted corpus
 OP_TARGET = f"{PKG}.vq_nearest.default"  # the registered VQ operator as an exported graph names it
 # the JSON keys each deploy CLI prints, the JAX package's scripts' own (tests/test_torch_deploy_cli.py checks
 # them against those scripts); the port's latency bench adds the device's name
@@ -4183,6 +4215,268 @@ def host_staged_phase(dev, counters, card: str) -> None:
     phase(17, f"phase 17 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+def annulus_sources(cfg, b: int, rng):
+    """``b`` source positions on run J's annulus (TOOLS_ANNULUS about the receiver, at the dataset's source
+    height, clipped at the room's upper walls), as ``scripts/bench_rir_cull.py`` draws them; float32 values
+    in a float64 array, so the card and the host library see the same positions."""
+    import numpy as np
+
+    theta, r = rng.uniform(-np.pi, np.pi, b), rng.uniform(*TOOLS_ANNULUS, b)
+    recv = np.asarray(cfg.receiver_position, np.float64)
+    pos = np.stack([recv[0] + r * np.cos(theta), recv[1] + r * np.sin(theta),
+                    np.full(b, recv[2] + cfg.Z_LOC_SOURCE)], axis=-1)
+    return np.minimum(pos, np.asarray(cfg.room_dimensions, np.float64)).astype(np.float32).astype(np.float64)
+
+
+def rir_oracle_and_cull(dev, cfg, card: str) -> None:
+    """Phase 18 (a): the card's RIRs in float32, three ways (no cull, the room cull, the geometry-boxed cull),
+    against the port's native library in float64 on the host, at TOOLS_SOURCES sources on run J's annulus;
+    then ``scripts/bench_rir_cull.py``'s A/B of the three on the card at its geometry (B = TOOLS_AB_B, the same
+    annulus, 6,400 taps, T60 0.4 s): warmed up, then interleaved round-robin, a synchronize around each call,
+    median and min of TOOLS_AB_ROUNDS calls a variant, in RIRs/s beside the native library's on this host."""
+    import numpy as np
+    import torch
+    from acoustic_locating_vq_vae_torch import native
+    from acoustic_locating_vq_vae_torch.data import geometry_boxes
+    from acoustic_locating_vq_vae_torch.dsp import generate_rir_batch
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    threads, cpus = native.num_threads(), os.cpu_count() or 1
+    if threads == 1 and cpus > 1:
+        raise AssertionError(f"the native library runs on one OpenMP thread on a host of {cpus} CPUs: it was "
+                             f"built without OpenMP ({lib})")
+    room, rt60 = tuple(float(v) for v in cfg.room_dimensions), float(cfg.reverberation_time)
+    host_kw = dict(receiver=cfg.receiver_position, room=room, nsample=cfg.n_sample, fs=float(cfg.fs), rt60=rt60,
+                   c=cfg.c)
+
+    def host(pos):
+        t = time.perf_counter()
+        out = native.generate_rir_native(pos, **host_kw)
+        return out, (time.perf_counter() - t) * 1e3
+
+    source_box, receiver_box = geometry_boxes(cfg, TOOLS_ANNULUS[1])
+    variants = {"no cull": dict(cull=False), "room cull": dict(cull=True),
+                "boxed cull": dict(cull=True, source_box=source_box, receiver_box=receiver_box)}
+    recv = torch.tensor(cfg.receiver_position, dtype=torch.float32, device=dev)
+    card_kw = dict(room=room, nsample=cfg.n_sample, fs=float(cfg.fs), c=cfg.c, rt60=rt60, chunk=SYNTH_CHUNK)
+
+    rng = np.random.default_rng(TOOLS_SEED)
+    pos = annulus_sources(cfg, TOOLS_SOURCES, rng)
+    oracle, oracle_ms = host(pos)
+    src = torch.tensor(pos, dtype=torch.float32, device=dev)
+    errs = {name: max_rel(generate_rir_batch(src, recv, **card_kw, **kw), oracle) for name, kw in variants.items()}
+    phase(18, f"(a) {TOOLS_SOURCES} RIRs of {cfg.n_sample} taps on run J's annulus {TOOLS_ANNULUS} m, T60 {rt60} s: "
+              f"the card in float32 against the native library in float64 (max |card - native| / max |native|, "
+              f"limit {SYNTH_LIMITS['rir']}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; native library built in {build_s:.2f} s ({Path(lib).name}), {threads} OpenMP threads on "
+              f"{cpus} CPUs, {oracle_ms:.1f} ms for the {TOOLS_SOURCES}")
+    bad = {k: v for k, v in errs.items() if not v <= SYNTH_LIMITS["rir"]}
+    if bad:
+        raise AssertionError(f"card RIRs off the native float64 oracle: {bad}, limit {SYNTH_LIMITS['rir']}")
+
+    pos = annulus_sources(cfg, TOOLS_AB_B, rng)
+    src = torch.tensor(pos, dtype=torch.float32, device=dev)
+    calls = {name: (lambda kw=kw: generate_rir_batch(src, recv, **card_kw, **kw)) for name, kw in variants.items()}
+    for fn in calls.values():  # warm-up: each variant's lattice built and cached, its kernels loaded
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in calls}
+    for _ in range(TOOLS_AB_ROUNDS):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    host_ms = [host(pos)[1] for _ in range(2)]
+    for name, ts in times.items():
+        med = statistics.median(ts)
+        phase(18, f"(a) cull A/B, {name}: B={TOOLS_AB_B} median {med:.3f} ms, min {min(ts):.3f} ms over "
+                  f"{len(ts)} interleaved calls, {TOOLS_AB_B / med * 1e3:.1f} RIRs/s "
+                  f"(best {TOOLS_AB_B / min(ts) * 1e3:.1f}) "
+                  f"({card})")
+    phase(18, f"(a) native library on the host, B={TOOLS_AB_B}: {min(host_ms):.1f} ms, "
+              f"{TOOLS_AB_B / min(host_ms) * 1e3:.1f} RIRs/s on {threads} OpenMP threads (of 2 calls: "
+              f"{', '.join(f'{t:.1f}' for t in host_ms)} ms)")
+
+
+def start_demos(root: Path) -> dict:
+    """Phase 18 (b): start ``cli.impulse_response_demo`` on the card, with and without ``--native``, both at
+    once; returns ``{name: (process, prefix, log)}``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PYTHONIOENCODING="utf-8")
+    procs = {}
+    for name, extra in (("torch", []), ("native", ["--native"])):
+        prefix = root / f"demo_{name}"
+        log = open(root / f"demo_{name}.log", "w")
+        cmd = [sys.executable, "-u", "-m", f"{PKG}.cli.impulse_response_demo", "--out-prefix", str(prefix),
+               "--device", DEVICE, "--seed", str(TOOLS_SEED), *extra]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO), prefix, log)
+    return procs
+
+
+def finish_demos(procs: dict, t0: float) -> None:
+    """Phase 18 (b): both demo runs exit 0 and write their files; a missing plot is accepted only with the
+    ImportError's message; the two RIRs agree within the JAX package's native-vs-XLA tolerance."""
+    import numpy as np
+
+    try:
+        logs = {}
+        for name, (proc, prefix, log) in procs.items():
+            rc = proc.wait(timeout=300)
+            log.close()
+            logs[name] = Path(log.name).read_text(encoding="utf-8")
+            if rc != 0:
+                raise AssertionError(f"impulse_response_demo ({name}) exited {rc}:\n{logs[name][-3000:]}")
+            for suffix in ("_dry.wav", "_echoed.wav", "_rir.npy"):
+                if not Path(f"{prefix}{suffix}").is_file():
+                    raise AssertionError(f"impulse_response_demo ({name}) wrote no {prefix}{suffix}")
+            plotted = Path(f"{prefix}.png").is_file()
+            if not plotted and "(no plot: No module named 'matplotlib')" not in logs[name]:
+                raise AssertionError(f"impulse_response_demo ({name}) wrote no plot:\n{logs[name][-3000:]}")
+        h = {name: np.load(f"{prefix}_rir.npy") for name, (_, prefix, _) in procs.items()}
+        scale = float(np.abs(h["native"]).max())
+        np.testing.assert_allclose(h["torch"], h["native"], atol=5e-4 * scale, rtol=1e-2)
+        plots = {name: Path(f"{prefix}.png").is_file() for name, (_, prefix, _) in procs.items()}
+        phase(18, f"(b) impulse_response_demo on the card, with and without --native: exit 0 both, wavs and RIRs "
+                  f"written, plots {plots} (none only where the CLI printed matplotlib's ImportError), the two "
+                  f"RIRs within atol 5e-4 of {scale:.4g} and rtol 1e-2 "
+                  f"(max |diff| {float(np.abs(h['torch'] - h['native']).max()):.3g}); "
+                  f"{time.perf_counter() - t0:.1f} s for both")
+    finally:
+        for proc, _, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def reference_round_trip(dev, cfg, composite, counters, root: Path, card: str) -> None:
+    """Phase 18 (c): seeded weights at full width (the speech VQ-VAE with an EMA codebook, the echoed composite
+    and the frozen location head) through ``eval.torch_export`` and ``save_reference_state_dicts``, then
+    ``torch.load`` and ``eval.torch_import``'s build functions: the frozen localizer served on the card at
+    B = TOOLS_SERVE_B from the rebuilt modules is bitwise the original's, the speech VQ-VAE's reconstruction
+    and codes too, with the vq_nearest launches counted as phase 3 counts them."""
+    import torch
+    from acoustic_locating_vq_vae_torch.cli.common import rir_branch
+    from acoustic_locating_vq_vae_torch.dsp import znorm
+    from acoustic_locating_vq_vae_torch.eval import (
+        build_echoed, build_location, build_vqvae, echoed_state_dict, full_fp32, location_state_dict,
+        make_serving_fn, save_reference_state_dicts, vqvae_state_dict,
+    )
+    from acoustic_locating_vq_vae_torch.train import LocationTask, SpeechVQVAETask
+    from acoustic_locating_vq_vae_torch.utils import deterministic_convs
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(TOOLS_SEED)
+    speech_task = SpeechVQVAETask(config=cfg, width_scale=TOOLS_WIDTH, vq_ema=True)
+    speech = speech_task.build_model(g)
+    location_task = LocationTask(config=cfg, width_scale=TOOLS_WIDTH)
+    head = location_task.build_model(g)
+    spec = torch.empty(TOOLS_SERVE_B, cfg.num_freq, cfg.num_frames).exponential_(generator=g)
+    path = root / "reference.pt"
+    save_reference_state_dicts(str(path), {"speech": vqvae_state_dict(speech), "echoed": echoed_state_dict(composite),
+                                           "location": location_state_dict(head)})
+    nbytes = path.stat().st_size
+    bundle = torch.load(path, map_location="cpu", weights_only=True)
+    rebuilt = {"speech": build_vqvae(bundle["speech"]), "echoed": build_echoed(bundle["echoed"]),
+               "location": build_location(bundle["location"])}
+    io_s = time.perf_counter() - t0
+
+    nearest = counters[0]
+    outs, launches = {}, {}
+    for name, head_sd, comp in (("original", head.state_dict(), composite),
+                                ("rebuilt", rebuilt["location"].state_dict(), rebuilt["echoed"].state_dict())):
+        serve = make_serving_fn(location_task, head_sd, cfg, rir_branch(comp), device=dev)
+        torch.cuda.synchronize()
+        nearest.launches = 0
+        with count_by_shape():
+            outs[name] = [t.cpu() for t in serve(spec.to(dev))]
+        torch.cuda.synchronize()
+        launches[name] = nearest.launches
+        del serve
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the frozen localizer never launched vq_nearest: {launches}")
+    if not all(torch.equal(a, b) for a, b in zip(outs["original"], outs["rebuilt"])):
+        diff = [float((a - b).abs().max()) for a, b in zip(outs["original"], outs["rebuilt"])]
+        raise AssertionError(f"the frozen localizer from the reference's keys differs: max |diff| {diff}")
+
+    x = znorm(spec, dim=1).to(dev)  # the speech stage's input (SpeechVQVAETask.model_inputs) of a power spectrogram
+    recon = {}
+    # deterministic cuDNN: the decoder's transposed convs are backward-data convolutions, whose default
+    # algorithms may differ from run to run in the last bit
+    with torch.no_grad(), full_fp32(), deterministic_convs():
+        for name, model in (("original", speech), ("rebuilt", rebuilt["speech"])):
+            model = copy.deepcopy(model).to(dev).eval()
+            _, r, perp = model(x, train=False)
+            recon[name] = (r.cpu(), perp.cpu(), model.get_latent_codes(x).cpu())
+            del model
+    if not all(torch.equal(a, b) for a, b in zip(recon["original"], recon["rebuilt"])):
+        diff = [float((a.double() - b.double()).abs().max()) for a, b in zip(recon["original"], recon["rebuilt"])]
+        raise AssertionError(f"the speech VQ-VAE from the reference's keys differs on the card: max |diff| of "
+                             f"reconstruction, perplexity, codes {diff}")
+    torch.cuda.empty_cache()
+    phase(18, f"(c) reference export round trip at width_scale {TOOLS_WIDTH}: bundle of {nbytes / 1e6:.1f} MB "
+              f"(speech EMA "
+              f"VQ-VAE, echoed composite, frozen location head) written, loaded and rebuilt in {io_s:.1f} s; the "
+              f"frozen localizer at B={TOOLS_SERVE_B} on the card bitwise the original's, vq_nearest launches "
+              f"{launches}; the speech VQ-VAE's reconstruction, perplexity and codes on the card bitwise ({card})")
+
+
+def corpus_into_synthesis(dev, cfg, root: Path) -> None:
+    """Phase 18 (d): ``cli.make_shifted_corpus --n TOOLS_CORPUS_N``, ``data.load_wav_dir``, then one
+    ``synthesize_batch`` on the card from that pool: finite outputs of the dataset's shapes."""
+    import torch
+    from acoustic_locating_vq_vae_torch.cli import make_shifted_corpus
+    from acoustic_locating_vq_vae_torch.data import load_wav_dir, synthesize_batch
+
+    t0 = time.perf_counter()
+    corpus = root / "corpus"
+    make_shifted_corpus.main(["--out", str(corpus), "--n", str(TOOLS_CORPUS_N), "--seed", str(TOOLS_SEED)])
+    pool = load_wav_dir(str(corpus), cfg.audio_samples)
+    if pool.shape != (TOOLS_CORPUS_N, cfg.audio_samples):
+        raise AssertionError(f"corpus pool of shape {pool.shape}")
+    batch = synthesize_batch(torch.Generator(device=dev).manual_seed(TOOLS_SEED), TOOLS_CORPUS_N, cfg,
+                             speech=torch.from_numpy(pool).to(dev), device=dev)
+    for name, t in batch._asdict().items():
+        if t.shape[0] != TOOLS_CORPUS_N or not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"synthesis from the corpus: {name} of shape {tuple(t.shape)}, want finite")
+    if tuple(batch.echoed_spec.shape) != (TOOLS_CORPUS_N, cfg.num_freq, cfg.num_frames):
+        raise AssertionError(f"echoed_spec of shape {tuple(batch.echoed_spec.shape)}")
+    phase(18, f"(d) make_shifted_corpus --n {TOOLS_CORPUS_N} -> load_wav_dir {tuple(pool.shape)} -> synthesize_batch "
+              f"on the card: every field finite, echoed_spec {tuple(batch.echoed_spec.shape)}; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def tools_phase(dev, counters, card: str, composite=None) -> None:
+    """Phase 18: the last modules of the JAX package and the tools. (a) the card's RIRs against the native
+    float64 library, and the cull A/B; (b) the impulse-response demo on the card (started after (a)'s timings,
+    it runs beside (c) and (d)); (c) the reference-format export round trip at full width; (d) a corpus of
+    ``make_shifted_corpus`` into synthesis. ``composite``: phase 8's seeded composite, else made here."""
+    import torch
+    from acoustic_locating_vq_vae_torch.data import DatasetConfig
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_ROOT, ignore_errors=True)
+    TOOLS_ROOT.mkdir(parents=True)
+    cfg = TOOLS_CONFIG or DatasetConfig()
+    rir_oracle_and_cull(dev, cfg, card)
+    t0 = time.perf_counter()
+    demos = start_demos(TOOLS_ROOT)
+    try:
+        if composite is None:
+            composite = composite_weights(make_stage_task("echoed", config=cfg, width_scale=TOOLS_WIDTH),
+                                          torch.Generator().manual_seed(STAGE_SEED))
+        reference_round_trip(dev, cfg, composite, counters, TOOLS_ROOT, card)
+        corpus_into_synthesis(dev, cfg, TOOLS_ROOT)
+    finally:
+        finish_demos(demos, t0)
+    shutil.rmtree(TOOLS_ROOT, ignore_errors=True)
+    phase(18, f"phase 18 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def manifest_task(stage: str, cfg, compute_dtype: str = "float32"):
     """The task of ``stage`` as phase 10's pipeline builds it (preset fixed, the joint stage with the range
     output and a tail term, a checkpoint every PIPE_CKPT_EVERY)."""
@@ -4278,6 +4572,11 @@ def main() -> int:
         mesh_phase(dev, card)
         accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
         print_kernels_line(max_err, accum_err)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if TOOLS in sys.argv[1:]:
+        tools_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
@@ -4508,6 +4807,9 @@ def main() -> int:
 
     # ---- phase 17: host-staged training (pinned host set, side-stream prefetch), its cost, the stage CLIs
     host_staged_phase(dev, counters, card)
+
+    # ---- phase 18: the native RIR oracle and the cull A/B, the demo CLI, the reference export, the corpus
+    tools_phase(dev, counters, card, composite)
 
     print_kernels_line(max_err, accum_err)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -27,21 +27,27 @@ train   Task and the six stage tasks (SpeechVQVAETask, RirVQVAETask,
         EchoedSpeechTask, EncoderFinetuneTask, LocationTask,
         JointLocationTask), make_task, graft_pretrained,
         check_flatten_handoff, Trainer, TrainHistory
-eval    weights from the JAX package's parameter trees, the serving closure,
-        the exported localizer artifact (export_localizer, load_localizer),
-        tracking and resynthesis helpers, the location evaluation
+eval    weights from the JAX package's parameter trees and the reference's
+        checkpoints and back to the reference's keys (torch_export), the
+        serving closure, the exported localizer artifact (export_localizer,
+        load_localizer), tracking and resynthesis helpers, the location
+        evaluation
+native  the host-side C++ image-source RIR (float64, OpenMP), the oracle
+        of dsp's RIR
 parallel data parallelism over torch.distributed process groups (the
         rank's handle, its block of a batch, the explicit-collective step)
 cli     the command-line entry points (pipeline, dataset, export, locate,
-        track, evaluation sweeps, resynthesis, latent analysis)
-utils   device rules (full_fp32, resolve_device), the stage store
+        track, evaluation sweeps, resynthesis, latent analysis, the stage
+        CLIs, the impulse-response demo, the shifted corpus)
+utils   device rules (full_fp32, resolve_device), the stage store,
+        spectrogram plots
 """
 
 __version__ = "0.1.0"
 
 import importlib
 
-__all__ = ["cli", "data", "dsp", "eval", "models", "ops", "parallel", "train", "utils", "__version__"]
+__all__ = ["cli", "data", "dsp", "eval", "models", "native", "ops", "parallel", "train", "utils", "__version__"]
 
 
 def __getattr__(name: str):

@@ -92,20 +92,20 @@ def main(argv=None) -> dict:
 
     try:
         import matplotlib
-
-        matplotlib.use("Agg")
-        from matplotlib import pyplot as plt
-
-        fig, ax = plt.subplots()
-        sc = ax.scatter(emb[:, 0], emb[:, 1], c=theta, cmap="hsv", s=8)
-        fig.colorbar(sc, label="theta [rad]")
-        ax.set_title(f"t-SNE of RIR VQ encodings ({stage})")
-        png = args.out.rsplit(".", 1)[0] + ".png"
-        fig.savefig(png, dpi=120)
-        plt.close(fig)
-        print(f"plot written to {png}")
-    except Exception as e:  # matplotlib is optional
+    except ImportError as e:  # matplotlib is optional; an error in the plot itself is not caught
         print(f"(no plot: {e})")
+        return out
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    fig, ax = plt.subplots()
+    sc = ax.scatter(emb[:, 0], emb[:, 1], c=theta, cmap="hsv", s=8)
+    fig.colorbar(sc, label="theta [rad]")
+    ax.set_title(f"t-SNE of RIR VQ encodings ({stage})")
+    png = args.out.rsplit(".", 1)[0] + ".png"
+    fig.savefig(png, dpi=120)
+    plt.close(fig)
+    print(f"plot written to {png}")
     return out
 
 

@@ -76,9 +76,9 @@ import sys
 import numpy as np
 
 __all__ = [
-    "add_data_args", "add_mesh_args", "add_model_args", "add_synthesis_args", "add_training_args", "build_parser",
-    "data_parallel", "dataset_seeds", "evaluation_set", "exit_on_preemption", "load_datasets", "load_speech_pool",
-    "main", "otf_kwargs", "recipe_kwargs", "smoke_config", "synthesis_kwargs",
+    "add_data_args", "add_device_arg", "add_mesh_args", "add_model_args", "add_synthesis_args", "add_training_args",
+    "build_parser", "data_parallel", "dataset_seeds", "evaluation_set", "exit_on_preemption", "load_datasets",
+    "load_speech_pool", "main", "otf_kwargs", "recipe_kwargs", "smoke_config", "synthesis_kwargs",
 ]
 
 EXIT_PREEMPTED = 75  # EX_TEMPFAIL
@@ -211,6 +211,11 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--smoke", action="store_true", help="tiny config for a fast end-to-end check")
     p.add_argument("--store-dir", default="checkpoints", help="stage store / checkpoint root")
     p.add_argument("--seed", type=int, default=0)
+    add_device_arg(p)
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    """``--device``: the card unless ``--device cpu``."""
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 

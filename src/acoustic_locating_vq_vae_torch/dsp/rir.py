@@ -345,7 +345,11 @@ def _block_matmul(images, lbc, ubc, image_gains, batch, nsample, tw, block, dtyp
         # K-local block sum; padding rows (gain 0) may clip out of the range
         loc = torch.clamp(blk - base, 0, K - 1)
         onehot = F.one_hot(loc.long(), K).to(dtype)  # (B, chunk, K)
-        acc[:, base : base + K] += torch.bmm(onehot.transpose(1, 2), vals)
+        # Without the cull a chunk can lie wholly beyond the window (all its
+        # gains 0): its range is clamped into the buffer, as JAX's
+        # dynamic_update_slice clamps it.
+        at = min(base, n_gb - K)
+        acc[:, at : at + K] += torch.bmm(onehot.transpose(1, 2), vals)
     # fold the f_over overlapping g-wide pieces of every window:
     # padded[(b + q) g + j] += acc[b, q g + j]
     pieces = acc.reshape(batch, n_gb, f_over, g)

@@ -172,8 +172,9 @@ def _imports(path):
 def test_port_imports_no_jax():
     """Neither the port's package (parallel/, eval/latents.py,
     eval/torch_import.py, cli/echoe_transfer.py, its own copies of data/flac.py
-    and data/collate.py and the stage CLIs among it) nor chip_smoke.py
-    nor bench_gpu.py imports jax, flax, the JAX package or bench.py, by any
+    and data/collate.py, the stage CLIs, native/, eval/torch_export.py,
+    utils/viz.py and the tool CLIs among it) nor chip_smoke.py nor
+    bench_gpu.py imports jax, flax, the JAX package or bench.py, by any
     import form."""
     sources = sorted((REPO / "src" / "acoustic_locating_vq_vae_torch").rglob("*.py"))
     sources += [REPO / "chip_smoke.py", REPO / "bench_gpu.py"]
@@ -183,7 +184,8 @@ def test_port_imports_no_jax():
                 "eval/torch_import.py", "cli/echoe_transfer.py", "data/flac.py", "data/collate.py",
                 "cli/train_speech.py", "cli/train_rir.py", "cli/train_echoed_speech.py",
                 "cli/encoder_training_echoed_model.py", "cli/train_location.py", "cli/test_data_set.py",
-                "cli/summarize_sweep.py"):
+                "cli/summarize_sweep.py", "native/__init__.py", "native/ism.py", "eval/torch_export.py",
+                "utils/viz.py", "cli/impulse_response_demo.py", "cli/make_shifted_corpus.py"):
         assert f"src/acoustic_locating_vq_vae_torch/{new}" in names, new
     banned = {"jax", "jaxlib", "flax", "acoustic_locating_vq_vae_tpu", "bench"}
     for path in sources:
