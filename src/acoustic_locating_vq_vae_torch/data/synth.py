@@ -24,7 +24,7 @@ The RIR bank (``:134-244``): :func:`make_rir_bank` precomputes the RIRs of a
 grid of angles (:func:`bank_thetas`), optionally times a T60 grid and a
 radius grid, and synthesis can gather each sample's RIR from it in place of
 the image-source sum (``rir_bank``, ``rir_bank_radii``), or mix the two per
-sample (``bank_mix_prob``). Not ported yet: host-staged datasets.
+sample (``bank_mix_prob``). Host-staged datasets are ``data/dataset.py``'s.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ..dsp.rir import generate_rir_batch
 from ..dsp.specs import rir_spec_ratio, source_coordinates, wiener_estimate
 from ..dsp.stft import spectrogram
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .config import DatasetConfig
 from .speech import speech_draws, speech_from_draws
 
@@ -434,21 +435,22 @@ def rirs_from_draws(
     T60 where none was drawn), on their device and in their dtype; with
     ``fixed_rir`` the first sample's RIR for every sample. ``geom_cull``:
     the lattice culled to the boxes of the draws' radius bound."""
-    theta = draws.theta
-    batch, dt, dev = theta.shape[0], theta.dtype, theta.device
-    receiver = torch.tensor(config.receiver_position, dtype=dt).to(dev)
-    room = torch.tensor(config.room_dimensions, dtype=dt).to(dev)
-    src = source_coordinates(theta, receiver, room, radius=draws.radius, z_loc=config.Z_LOC_SOURCE)
-    rir_kw = dict(room=tuple(config.room_dimensions), nsample=config.n_sample, fs=float(config.fs), c=config.c,
-                  chunk=rir_chunk)
-    if geom_cull:
-        sbox, rbox = geometry_boxes(config, draws.r_hi)
-        rir_kw.update(source_box=sbox, receiver_box=rbox)
-    if draws.rt60 is None:
-        rir_kw["rt60"] = config.reverberation_time
-    n_rir = 1 if fixed_rir else batch
-    h = generate_rir_batch(src[:n_rir], receiver, None if draws.rt60 is None else draws.rt60[:n_rir], **rir_kw)
-    return h.expand(batch, -1)
+    with span("synth.rir"):
+        theta = draws.theta
+        batch, dt, dev = theta.shape[0], theta.dtype, theta.device
+        receiver = torch.tensor(config.receiver_position, dtype=dt).to(dev)
+        room = torch.tensor(config.room_dimensions, dtype=dt).to(dev)
+        src = source_coordinates(theta, receiver, room, radius=draws.radius, z_loc=config.Z_LOC_SOURCE)
+        rir_kw = dict(room=tuple(config.room_dimensions), nsample=config.n_sample, fs=float(config.fs), c=config.c,
+                      chunk=rir_chunk)
+        if geom_cull:
+            sbox, rbox = geometry_boxes(config, draws.r_hi)
+            rir_kw.update(source_box=sbox, receiver_box=rbox)
+        if draws.rt60 is None:
+            rir_kw["rt60"] = config.reverberation_time
+        n_rir = 1 if fixed_rir else batch
+        h = generate_rir_batch(src[:n_rir], receiver, None if draws.rt60 is None else draws.rt60[:n_rir], **rir_kw)
+        return h.expand(batch, -1)
 
 
 def synthesize_from_draws(
@@ -475,22 +477,23 @@ def synthesize_from_draws(
         h = bank[tuple(draws.bank_index.to(bank.device).unbind(1))].to(dev, theta.dtype)
         if draws.use_bank is not None:
             h = torch.where(draws.use_bank[:, None], h, rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull))
-    echoed = fft_convolve(speech, h, mode="same")
-    if draws.snr_db is not None:
-        echoed = add_sensor_noise(echoed, draws.snr_db, draws.noise, draws.clean)
-    speech_spec = _complex_spectrogram(speech, config)  # (B, F, T) complex, every frame
-    echoed_spec = _complex_spectrogram(echoed, config)
-    rir_spec = rir_spec_ratio(speech_spec, echoed_spec)  # each sample's max over all its frames
-    wiener = wiener_estimate(speech_spec, echoed_spec)  # (B, F), over all frames
-    return SampleBatch(
-        speech_spec=_power_truncated(speech_spec, config),
-        rir_spec=_power_truncated(rir_spec, config),
-        echoed_spec=_power_truncated(echoed_spec, config),
-        fs=torch.full((batch,), config.fs, dtype=torch.int32, device=dev),
-        theta=theta,
-        wiener_est=wiener,
-        radius=draws.radius.expand(batch),
-    )
+    with span("synth.spectra"):
+        echoed = fft_convolve(speech, h, mode="same")
+        if draws.snr_db is not None:
+            echoed = add_sensor_noise(echoed, draws.snr_db, draws.noise, draws.clean)
+        speech_spec = _complex_spectrogram(speech, config)  # (B, F, T) complex, every frame
+        echoed_spec = _complex_spectrogram(echoed, config)
+        rir_spec = rir_spec_ratio(speech_spec, echoed_spec)  # each sample's max over all its frames
+        wiener = wiener_estimate(speech_spec, echoed_spec)  # (B, F), over all frames
+        return SampleBatch(
+            speech_spec=_power_truncated(speech_spec, config),
+            rir_spec=_power_truncated(rir_spec, config),
+            echoed_spec=_power_truncated(echoed_spec, config),
+            fs=torch.full((batch,), config.fs, dtype=torch.int32, device=dev),
+            theta=theta,
+            wiener_est=wiener,
+            radius=draws.radius.expand(batch),
+        )
 
 
 def synthesize_batch(

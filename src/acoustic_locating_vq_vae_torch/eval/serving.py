@@ -43,6 +43,7 @@ from ..data.synth import observed_power_spec
 from ..dsp.specs import source_coordinates
 from ..train.tasks import JointLocationTask, LocationTask
 from ..utils.device import full_fp32, resolve_device
+from ..utils.profiling import span
 
 __all__ = [
     "SERVING_BLOB", "SERVING_META", "export_localizer", "full_fp32", "load_localizer", "make_serving_fn",
@@ -133,9 +134,10 @@ def make_serving_fn(
 
     @torch.inference_mode()
     def serve(x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = torch.as_tensor(x, dtype=torch.float32, device=device)
-        with full_fp32():
-            return localize(x)
+        with span("serve.call"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=device)
+            with full_fp32():
+                return localize(x)
 
     serve.localize = localize
     serve.modules = modules

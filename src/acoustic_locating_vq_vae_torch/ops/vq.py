@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .initializers import uniform_
+from .span import span
 from .vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
 
 # the assignment's operator, in the package's own namespace: an exported
@@ -317,18 +318,20 @@ def perplexity_from_indices(indices: torch.Tensor, num_embeddings: int, mesh=Non
     (vector_quantizer.py:55-56); on a process ``mesh``, over every rank's
     assignments on the data axis and, with ``seq``, on the sequence axis (the
     code counts summed over them, JAX ops/vq.py:212-220)."""
-    # int64 in: bincount's count dtype is int64 on every device and in every torch version's fake
-    # kernel (some give int32 for int32 ids), so an exported graph's dtype checks hold when it runs
-    flat = indices.reshape(-1).long()
-    counts = torch.bincount(flat, minlength=num_embeddings).to(torch.float32)
-    if not _reduce_counts(counts, mesh, seq):
-        avg_probs = counts / flat.shape[0]
-    else:
-        n = counts.sum()  # the global rows, exact: an integer below 2**24
-        # the arithmetic of the line above, so that a world of one is bitwise one device: a CUDA tensor divided
-        # by a Python number is multiplied by the number's float32 reciprocal, a CPU tensor is divided by it
-        avg_probs = counts * n.reciprocal() if counts.is_cuda else counts / n
-    return torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
+    with span("vq.perplexity"):
+        # int64 in: bincount's count dtype is int64 on every device and in every torch version's fake
+        # kernel (some give int32 for int32 ids), so an exported graph's dtype checks hold when it runs
+        flat = indices.reshape(-1).long()
+        counts = torch.bincount(flat, minlength=num_embeddings).to(torch.float32)
+        if not _reduce_counts(counts, mesh, seq):
+            avg_probs = counts / flat.shape[0]
+        else:
+            n = counts.sum()  # the global rows, exact: an integer below 2**24
+            # the arithmetic of the line above, so that a world of one is bitwise one device: a CUDA tensor
+            # divided by a Python number is multiplied by the number's float32 reciprocal, a CPU tensor is
+            # divided by it
+            avg_probs = counts * n.reciprocal() if counts.is_cuda else counts / n
+        return torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
 
 
 def _seed_rows(flat: torch.Tensor, k: int, mesh, seq: bool) -> torch.Tensor:
@@ -463,24 +466,26 @@ class VectorQuantizer(nn.Module):
     def forward(self, inputs: torch.Tensor, train_vq: bool = True, need_encodings: bool = False) -> VQOutput:
         """``inputs``: (..., D) latents, channels last. ``quantized`` has the
         input shape; ``encodings`` is None unless ``need_encodings``."""
-        flat = inputs.reshape(-1, self.embedding_dim)
-        indices, quantized = assign(flat, self._embedding.weight)
-        e_latent_loss = torch.mean((quantized.detach() - flat) ** 2)
-        if self.ema:
-            q_latent_loss = torch.zeros((), dtype=flat.dtype, device=flat.device)
-            if train_vq and self.training:
-                self._ema_update(indices, flat.detach())
-        elif train_vq:
-            q_latent_loss = torch.mean((quantized - flat.detach()) ** 2)
-        else:
-            # frozen codebook: same value, no gradient (vector_quantizer.py:50)
-            q_latent_loss = torch.mean((quantized - flat) ** 2).detach()
-        loss = q_latent_loss + self.commitment_cost * e_latent_loss
+        with span("vq.quantize"):
+            flat = inputs.reshape(-1, self.embedding_dim)
+            indices, quantized = assign(flat, self._embedding.weight)
+            e_latent_loss = torch.mean((quantized.detach() - flat) ** 2)
+            if self.ema:
+                q_latent_loss = torch.zeros((), dtype=flat.dtype, device=flat.device)
+                if train_vq and self.training:
+                    self._ema_update(indices, flat.detach())
+            elif train_vq:
+                q_latent_loss = torch.mean((quantized - flat.detach()) ** 2)
+            else:
+                # frozen codebook: same value, no gradient (vector_quantizer.py:50)
+                q_latent_loss = torch.mean((quantized - flat) ** 2).detach()
+            loss = q_latent_loss + self.commitment_cost * e_latent_loss
 
-        quantized = quantized.reshape(inputs.shape)
-        ste = inputs + (quantized - inputs).detach()
-        perplexity = perplexity_from_indices(indices, self.num_embeddings, self.mesh, self.sequence_axis is not None)
-        encodings = (
-            F.one_hot(indices.long(), self.num_embeddings).to(flat.dtype) if need_encodings else None
-        )
-        return VQOutput(loss, ste, perplexity, indices, encodings)
+            quantized = quantized.reshape(inputs.shape)
+            ste = inputs + (quantized - inputs).detach()
+            perplexity = perplexity_from_indices(indices, self.num_embeddings, self.mesh,
+                                                 self.sequence_axis is not None)
+            encodings = (
+                F.one_hot(indices.long(), self.num_embeddings).to(flat.dtype) if need_encodings else None
+            )
+            return VQOutput(loss, ste, perplexity, indices, encodings)

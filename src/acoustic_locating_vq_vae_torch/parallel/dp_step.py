@@ -29,6 +29,7 @@ from typing import Callable, Dict, Iterable, Tuple, Union
 
 import torch
 
+from ..utils.profiling import span
 from .mesh import DataParallel
 
 __all__ = ["global_rows", "make_dp_train_step", "reduce_gradients", "reduce_metrics", "step_weight"]
@@ -110,7 +111,8 @@ def make_dp_train_step(
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch)
         weight = step_weight(rows, dp, loss.device)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         reduce_gradients(params, dp, weight)
         optimizer.step()
         out = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}

@@ -62,7 +62,8 @@ frozen-weight guard (:198-212, :619-620, :755-781), the frozen-latent cache
 * SIGTERM during ``fit`` saves a checkpoint at the next step boundary and
   raises :class:`Preempted`; ``fit(resume=True)`` continues from the newest
   periodic checkpoint;
-* ``profile_dir`` traces steady-state steps with ``torch.profiler``;
+* ``profile_dir`` traces steady-state steps with ``torch.profiler``, the
+  program's spans among them (``utils/profiling.py:span``);
 * with ``mesh`` (a :class:`..parallel.DataParallel` handle; JAX
   :196-212, :359-420) every rank trains on its block of the global batch:
   it holds its contiguous block of each resident set and draws ``B / W``
@@ -122,7 +123,7 @@ from ..parallel.tensor import (
 )
 from ..utils.checkpoint import StageStore
 from ..utils.device import deterministic_convs, full_fp32, resolve_device
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 from .tasks import Task, resolved_vq_flatten
 
 Cache = Dict[str, torch.Tensor]
@@ -381,14 +382,15 @@ class Trainer:
         ``synthesize_batch`` draws the rest (the order ``make_dataset``
         draws a batch in), from the bank where one is set. Under data
         parallelism, this rank's block of the batch, from its own generator."""
-        gen, b = self.synth_generator, self._block_size(self.task.batch_size)
-        kw = dict(self.synth_kwargs)
-        if self.rir_bank is not None:
-            kw["rir_bank"] = self.rir_bank
-        if self.speech_pool is not None:
-            kw["speech"] = self.speech_pool[torch.randint(self.speech_pool.shape[0], (b,), generator=gen,
-                                                          device=gen.device)]
-        return synthesize_batch(gen, b, self.task.config, device=self.device, **kw)
+        with span("train.otf_batch"):
+            gen, b = self.synth_generator, self._block_size(self.task.batch_size)
+            kw = dict(self.synth_kwargs)
+            if self.rir_bank is not None:
+                kw["rir_bank"] = self.rir_bank
+            if self.speech_pool is not None:
+                kw["speech"] = self.speech_pool[torch.randint(self.speech_pool.shape[0], (b,), generator=gen,
+                                                              device=gen.device)]
+            return synthesize_batch(gen, b, self.task.config, device=self.device, **kw)
 
     def to_device(self, data: SampleBatch) -> SampleBatch:
         return data.map(lambda a: torch.as_tensor(a).to(self.device))
@@ -480,12 +482,14 @@ class Trainer:
         """A random batch of ``task.batch_size`` distinct rows (the whole set
         if it is smaller), bf16-stored arrays cast to float32; under data
         parallelism this rank's rows of it, ``data`` being the whole set."""
-        return self._rows(data, self._indices(data))
+        with span("train.sample"):
+            return self._rows(data, self._indices(data))
 
     def sample_cached(self, data: SampleBatch, cache: Cache) -> Tuple[SampleBatch, Cache]:
         """:meth:`sample` with the cache's rows of the same samples."""
-        idx = self._indices(data)
-        return self._rows(data, idx), {k: v[idx] for k, v in cache.items()}
+        with span("train.sample"):
+            idx = self._indices(data)
+            return self._rows(data, idx), {k: v[idx] for k, v in cache.items()}
 
     def build_cache(self, data: SampleBatch) -> Cache:
         """The frozen-latent cache of a resident dataset: the task's code ids
@@ -534,27 +538,29 @@ class Trainer:
         metrics and takes the same update. On time shards (a task's
         ``sequence_axis``) the step takes the rank's window of ``batch``'s time
         axis, and averages over the sequence axis too."""
-        dp = self.dp
-        if self._seq_sharded:
-            batch = self._time_window(batch)
-        with self._step_context():
-            if train and dp is not None:
-                metrics = self._dp_step((batch, cache), rows=int(batch.speech_spec.shape[0]))
-            elif train:
-                self.optimizer.zero_grad(set_to_none=True)
-                loss, metrics = self._loss(batch, True, cache)
-                loss.backward()
-                self.optimizer.step()
-                metrics = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
-            else:
-                with torch.no_grad():
-                    loss, metrics = self._loss(batch, False, cache)
-                metrics = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
-                if dp is not None:
-                    weight = step_weight(int(batch.speech_spec.shape[0]), dp, self.device)
-                    metrics = reduce_metrics(metrics, dp, weight, [k for k in metrics if k.endswith("perplexity")])
-        self.step_count += 1
-        return metrics
+        with span("train.step"):
+            dp = self.dp
+            if self._seq_sharded:
+                batch = self._time_window(batch)
+            with self._step_context():
+                if train and dp is not None:
+                    metrics = self._dp_step((batch, cache), rows=int(batch.speech_spec.shape[0]))
+                elif train:
+                    self.optimizer.zero_grad(set_to_none=True)
+                    loss, metrics = self._loss(batch, True, cache)
+                    with span("train.backward"):
+                        loss.backward()
+                    self.optimizer.step()
+                    metrics = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
+                else:
+                    with torch.no_grad():
+                        loss, metrics = self._loss(batch, False, cache)
+                    metrics = {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
+                    if dp is not None:
+                        weight = step_weight(int(batch.speech_spec.shape[0]), dp, self.device)
+                        metrics = reduce_metrics(metrics, dp, weight, [k for k in metrics if k.endswith("perplexity")])
+            self.step_count += 1
+            return metrics
 
     # ------------------------------------------------------------------- fit
 

@@ -2,10 +2,10 @@
 
 from .checkpoint import StageStore, load_state, save_state
 from .device import deterministic_convs, full_fp32, resolve_device
-from .profiling import StepTimer, time_fn, trace
+from .profiling import span, trace
 from .viz import plot_spectrogram, plot_spectrogram_grid
 
 __all__ = [
-    "StageStore", "StepTimer", "deterministic_convs", "full_fp32", "load_state", "plot_spectrogram",
-    "plot_spectrogram_grid", "resolve_device", "save_state", "time_fn", "trace",
+    "StageStore", "deterministic_convs", "full_fp32", "load_state", "plot_spectrogram", "plot_spectrogram_grid",
+    "resolve_device", "save_state", "span", "trace",
 ]
