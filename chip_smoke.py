@@ -10,7 +10,7 @@
     python3 chip_smoke.py --data-parallel  # phases 1 and 15, then the kernels' checks and timings
     python3 chip_smoke.py --mesh      # phases 1, 2 and 16, then the accumulation kernel's check
     python3 chip_smoke.py --host-staged  # phases 1, 2 and 17, then the kernels' checks and timings
-    python3 chip_smoke.py --tools     # phases 1 and 18 only
+    python3 chip_smoke.py --tools     # phases 1 and 18 only, then the tap kernel's timing and its kernels line
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; builds the
 port's kernels from ``src/acoustic_locating_vq_vae_torch/csrc`` first. Imports
@@ -92,7 +92,8 @@ nothing of JAX. Phases, one line each (more for detail):
    radius_range, snr_range with snr_clean_prob and the SNR read back from the
    spectrograms, fixed_rir, fixed_speech, a given geometry replayed bitwise),
    and the timings: synthesize_batch in samples/s and generate_rir_batch in
-   RIRs/s at B = 64 (medians of 10, peak memory, the RIR by chunk size), a
+   RIRs/s at B = 64 (medians of 10, peak memory), the tap kernel beside its
+   bound and the plain version on the card (``time_rir_taps``), a
    profiler breakdown of one batch, and make_dataset of the CLI's default
    1000 + 200 rows;
 12. on-the-fly training with run K's options (``otf_phase``; full width and
@@ -198,11 +199,12 @@ nothing of JAX. Phases, one line each (more for detail):
 
 18. the last modules of the JAX package and the tools (``tools_phase``): (a)
    16 RIRs on run J's annulus (0.45-1.45 m about the receiver, T60 0.4 s,
-   6,400 taps) from ``generate_rir_batch`` on the card in float32 without
-   cull, with the room cull and with the geometry-boxed cull, each within
-   SYNTH_LIMITS["rir"] of the port's native C++ library in float64 on the
-   host (which must run on more than one OpenMP thread where the host has
-   more than one CPU), then ``scripts/bench_rir_cull.py``'s A/B of the three
+   6,400 taps) from ``generate_rir_batch`` on the card in float32 (the tap
+   kernel) without cull, with the room cull and with the geometry-boxed
+   cull, each within SYNTH_LIMITS["rir"] of the port's native C++ library
+   in float64 on the host (which must run on more than one OpenMP thread
+   where the host has more than one CPU) and within RIR_PLAIN_LIMIT of the
+   plain version on the card, then ``scripts/bench_rir_cull.py``'s A/B of the three
    at B = 32, interleaved, in RIRs/s beside the native library's; (b)
    ``cli.impulse_response_demo`` on the card with and without --native:
    exit 0, the files written, the two RIRs within the JAX package's
@@ -235,6 +237,9 @@ The ``kernels`` line carries the card's time, one entry for each kernel and
 shape that was both timed and run by the main path's checked and timed runs
 (phases 3, 6 to 10, 12, 13 and 14's served artifacts), with the launches
 counted at that shape (``count_by_shape``); phase 15's, 17's and 18's runs count too.
+The tap kernel (``rir_taps``) has its entry at B = 64 and the on-the-fly
+cell's geometry, from phase 11's ``time_rir_taps`` (its plain version timed
+with events: it copies from the host).
 
 Then a JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, and the exit code is not 0.
@@ -308,8 +313,7 @@ PIPE_ROWS = {"train": 64, "val": 16}
 SYNTH_B = 64
 SYNTH_SEEDS = (11, 12, 13)
 SYNTH_CHECK_B = 8  # rows of each card batch also synthesized in float64 on the CPU from the same draws
-SYNTH_CHUNK = 8192  # lattice images per step of the RIR's walk (synthesize_batch's rir_chunk)
-SYNTH_CHUNK_SWEEP = (2048, 4096, 8192, 16384)
+SYNTH_CHUNK = 8192  # lattice images per step of the plain RIR's walk (synthesize_batch's rir_chunk)
 SYNTH_IMAGES = 179443  # the geometry-boxed lattice at radius 1 m
 # card vs the port in float64 on the CPU, max |error| / max |float64| (rir_spec after each sample's scale).
 # Set from the H100's readings at SYNTH_SEEDS (PERF.md): rir 2.9e-5, speech_spec 2.6e-7, echoed_spec
@@ -412,23 +416,29 @@ def phase(n: int, msg: str) -> None:
 
 # (kernel, N, D, K) -> launches at that shape in the main path's runs opened with count_by_shape
 SHAPE_LAUNCHES = collections.Counter()
-# (kernel, N, D, K) -> the kernel's timing at that shape (time_nearest, time_accum on uniform indices)
+# (kernel, N, D, K) -> the kernel's timing at that shape (time_nearest, time_accum on uniform indices,
+# time_rir_taps under (kernel, B, nsample, plan pairs))
 SHAPE_TIMINGS = {}
+# the tap kernel's worst distance from the plain version in float64 on the card (time_rir_taps)
+RIR_ERRORS = {}
 
 
 @contextlib.contextmanager
 def count_by_shape():
-    """While open, every launch that the port makes through ``ops.vq`` (the main path's only way to the
-    kernels) is also counted in SHAPE_LAUNCHES under its kernel and shape: each wrapper is called through
-    a recorder that adds the change of the wrapper's own count. This script's direct calls of the
-    wrappers (the kernels against their plain versions, the kernel timings) do not pass through ``ops.vq``
-    and are not counted."""
+    """While open, every launch that the port makes through ``ops.vq`` or ``dsp.rir`` (the main path's
+    only ways to the kernels) is also counted in SHAPE_LAUNCHES under its
+    kernel and shape: each wrapper is called through a recorder that adds the change of the wrapper's own
+    count. This script's direct calls of the wrappers (the kernels against their plain versions, the kernel
+    timings) do not pass through them and are not counted."""
+    from acoustic_locating_vq_vae_torch.dsp import rir
     from acoustic_locating_vq_vae_torch.ops import vq
 
     shapes = {
-        "nearest_indices_cuda": ("vq_nearest", lambda x, cb, e2: (x.shape[0], x.shape[1], cb.shape[0])),
-        "codebook_grad_cuda": ("vq_codebook_grad", lambda idx, g, k: (g.shape[0], g.shape[1], k)),
-        "codebook_stats_cuda": ("vq_codebook_stats", lambda idx, x, k: (x.shape[0], x.shape[1], k)),
+        (vq, "nearest_indices_cuda"): ("vq_nearest", lambda x, cb, e2: (x.shape[0], x.shape[1], cb.shape[0])),
+        (vq, "codebook_grad_cuda"): ("vq_codebook_grad", lambda idx, g, k: (g.shape[0], g.shape[1], k)),
+        (vq, "codebook_stats_cuda"): ("vq_codebook_stats", lambda idx, x, k: (x.shape[0], x.shape[1], k)),
+        # (B, nsample, the plan's (row, segment) pairs)
+        (rir, "rir_taps_cuda"): ("rir_taps", lambda src, *a: (src.shape[0], a[6], a[2].shape[0])),
     }
 
     def recorder(wrapper, kernel, shape):
@@ -439,14 +449,19 @@ def count_by_shape():
             return out
         return call
 
-    saved = {name: getattr(vq, name) for name in shapes}
-    for name, (kernel, shape) in shapes.items():
-        setattr(vq, name, recorder(saved[name], kernel, shape))
+    saved = {key: getattr(*key) for key in shapes}
+    for (module, name), (kernel, shape) in shapes.items():
+        setattr(module, name, recorder(saved[(module, name)], kernel, shape))
     try:
         yield
     finally:
-        for name, wrapper in saved.items():
-            setattr(vq, name, wrapper)
+        for (module, name), wrapper in saved.items():
+            setattr(module, name, wrapper)
+
+
+def vq_errors(max_err: float, accum_err: float) -> dict:
+    """The VQ kernels' worst errors against their plain versions, by kernel line."""
+    return {"vq_nearest": max_err, "vq_codebook_grad": accum_err, "vq_codebook_stats": accum_err}
 
 
 def check_codes(x, codebook, got, want, label: str):
@@ -1842,6 +1857,91 @@ def sync_times_ms(fn, steps: int = 10, warmup: int = 2):
     return statistics.median(times), times
 
 
+# the plain tap build in float32 against float64 reads up to 2.2e-4 of its max (its float32 sums; the kernel
+# 2.1e-5 at the same sources on an H100, PERF.md): the kernel lies within this of the plain version in float32
+RIR_PLAIN_LIMIT = 5e-4
+# operations of one tap in the kernel (window 2 FMA and a multiply, sinc an FMA and a division, the position's
+# difference, the gain's two products, the add), against the FP32 rate
+TAP_OPS = 12
+
+
+def plain_taps_on_card(sources, receiver, rt60: float, kw: dict):
+    """The plain version of the tap build (dsp/rir.py:_block_matmul) on the card's tensors, without the
+    high-pass, at a static T60, TF32 off."""
+    import torch
+    from acoustic_locating_vq_vae_torch.dsp import rir as trir
+    from acoustic_locating_vq_vae_torch.eval import full_fp32
+
+    betas = trir._betas(kw["room"], kw["c"], sources.shape[0], sources.dtype, sources.device, rt60, None, None)
+    with full_fp32(), torch.no_grad():
+        return trir._plain_taps(sources, receiver, betas, room=kw["room"], nsample=kw["nsample"], fs=kw["fs"],
+                                c=kw["c"], order=-1, tw=2 * int(round(0.004 * kw["fs"])), cull=kw.get("cull", True),
+                                source_box=kw.get("source_box"), receiver_box=kw.get("receiver_box"),
+                                method="block_matmul", chunk=SYNTH_CHUNK, block=32)
+
+
+def time_rir_taps(ph: int, dev, card: str) -> None:
+    """The tap kernel at B = SYNTH_B and the on-the-fly cell's geometry: the main path's ``rirs_from_draws``
+    once (its launch counted), the kernel's taps against the plain version on the card in float64 and in
+    float32, then the kernel's time (CUDA graph) beside its bound (its taps' operations, the bytes of its
+    output and plan) and the plain version's (events around 5 calls, which copy from the host and wait)."""
+    import numpy as np
+    import torch
+    from acoustic_locating_vq_vae_torch import data
+    from acoustic_locating_vq_vae_torch.dsp import rir as trir
+    from acoustic_locating_vq_vae_torch.dsp import source_coordinates
+    from acoustic_locating_vq_vae_torch.dsp.rir import rir_taps
+    from acoustic_locating_vq_vae_torch.ops.rir_cuda import rir_taps_cuda
+
+    cfg = data.DatasetConfig()
+    draws = data.draw_synthesis(torch.Generator(dev).manual_seed(SYNTH_SEEDS[0]), SYNTH_B, cfg)
+    before = rir_taps_cuda.launches
+    with count_by_shape():
+        data.rirs_from_draws(draws, cfg)
+    if rir_taps_cuda.launches - before != 1:
+        raise AssertionError(f"rirs_from_draws launched the tap kernel {rir_taps_cuda.launches - before} times, want 1")
+    receiver = torch.tensor(cfg.receiver_position, device=dev)
+    room_t = torch.tensor(cfg.room_dimensions, device=dev)
+    src = source_coordinates(draws.theta, receiver, room_t, radius=draws.radius, z_loc=cfg.Z_LOC_SOURCE)
+    sbox, rbox = data.geometry_boxes(cfg, draws.r_hi)
+    room, n, fs, c, t60 = tuple(float(v) for v in cfg.room_dimensions), cfg.n_sample, float(cfg.fs), float(cfg.c), \
+        float(cfg.reverberation_time)
+    kw = dict(room=room, nsample=n, fs=fs, c=c, source_box=sbox, receiver_box=rbox)
+    seg = trir._segment_size(n, SYNTH_B)
+    entries, slot_ptr, slot_seg, table, rows, max_pow = trir._card_plan(room, n, fs, c, True, sbox, rbox, -1, 128,
+                                                                        seg, torch.float32, dev)
+    betas = trir._betas(room, c, SYNTH_B, torch.float32, dev, t60, None, None)
+    cts = c / fs
+    call = lambda: rir_taps(src, receiver, betas, entries, slot_ptr, slot_seg, table, n, seg, max_pow,  # noqa: E731
+                            [v / cts for v in room], cts)
+    got = call()
+    want64 = plain_taps_on_card(src.double(), receiver.double(), t60, kw)
+    err, err_plain = max_rel(got, want64), max_rel(got, plain_taps_on_card(src, receiver, t60, kw))
+    RIR_ERRORS["rir_taps"] = max(RIR_ERRORS.get("rir_taps", 0.0), err)
+    if not (err <= SYNTH_LIMITS["rir"] and err_plain <= RIR_PLAIN_LIMIT):
+        raise AssertionError(f"tap kernel {err:.3g} of its max from the plain version in float64 (limit "
+                             f"{SYNTH_LIMITS['rir']}), {err_plain:.3g} from it in float32 (limit {RIR_PLAIN_LIMIT})")
+    kern = both_ms(call)
+    plain_ms = event_ms(lambda: plain_taps_on_card(src, receiver, t60, kw), iters=5)
+    # the taps that land in [0, n): each image with floor(d) < n puts its window's part inside
+    images = trir._image_grid_bounds(room, n, fs, c, source_box=sbox, receiver_box=rbox)[0].astype(np.float64)
+    s_, r_ = src.double().cpu().numpy() / cts, receiver.double().cpu().numpy() / cts
+    d = np.sqrt((((1 - 2 * images[None, :, 3:]) * s_[:, None] - r_ + 2 * images[None, :, :3] * np.asarray(room) / cts)
+                 ** 2).sum(-1))
+    fd = np.floor(d)
+    taps = float(np.where(fd < n, np.clip(np.minimum(fd + 64, n - 1) - np.maximum(fd - 63, 0) + 1, 0, None), 0).sum())
+    nbytes = 4 * SYNTH_B * n + entries.numel() * 4 + 4 * SYNTH_B * 3
+    t_ops, t_bytes = TAP_OPS * taps / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    SHAPE_TIMINGS[("rir_taps", SYNTH_B, n, entries.shape[0])] = dict(
+        ms=kern[0], plain_ms=plain_ms, bound_ms=bound, bound_by="operations" if t_ops >= t_bytes else "bytes")
+    phase(ph, f"rir_taps at B={SYNTH_B}, {n} taps, the boxed cull ({rows} lattice rows, {entries.shape[0]} (row, "
+              f"segment) pairs in segments of {seg}): kernel {fmt_ms(kern)}; bound {bound:.5f} ms ({taps:.4g} taps x "
+              f"{TAP_OPS} FP32 ops, {nbytes} bytes); plain version on the card {plain_ms:.3f} ms (events, 5 calls); "
+              f"the kernel {err:.3g} of its max from the plain version in float64, {err_plain:.3g} from it in float32 "
+              f"({card})")
+
+
 def synthesis_phase(dev, card: str) -> None:
     """Phase 11: synthesis at the full geometry (201 x 500, 6400-tap RIRs over 179,443 lattice images) on the
     card: at three seeds a B = 64 batch against the port in float64 on the CPU from the same draws (its first
@@ -1978,19 +2078,15 @@ def synthesis_phase(dev, card: str) -> None:
     held = torch.cuda.memory_allocated()  # the peaks below count what the call adds to this
     synth_ms, synth_times = sync_times_ms(lambda: data.synthesize_batch(g, SYNTH_B, cfg, device=dev))
     synth_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-    chunk_ms = {}
-    for chunk in SYNTH_CHUNK_SWEEP:
-        kw = dict(rir_kw, chunk=chunk)
-        torch.cuda.reset_peak_memory_stats()
-        ms, _ = sync_times_ms(lambda: generate_rir_batch(sources, receiver, **kw))
-        chunk_ms[chunk] = (ms, (torch.cuda.max_memory_allocated() - held) / 1e9)
-    rir_ms = chunk_ms[SYNTH_CHUNK][0]
+    torch.cuda.reset_peak_memory_stats()
+    rir_ms, _ = sync_times_ms(lambda: generate_rir_batch(sources, receiver, **rir_kw))
+    rir_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     phase(11, f"synthesize_batch B={SYNTH_B}: median {synth_ms:.3f} ms over {len(synth_times)} (min "
               f"{min(synth_times):.3f}, max {max(synth_times):.3f}), {SYNTH_B / synth_ms * 1e3:.1f} samples/s, peak "
-              f"memory {synth_peak:.3f} GB above what was held before; generate_rir_batch B={SYNTH_B}, chunk {SYNTH_CHUNK}: median "
-              f"{rir_ms:.3f} ms, {SYNTH_B / rir_ms * 1e3:.1f} RIRs/s ({SYNTH_B * SYNTH_IMAGES / rir_ms / 1e6:.3f} G "
-              f"image sources/s); by chunk, time / peak memory: "
-              + ", ".join(f"{c} {ms:.3f} ms / {gb:.3f} GB" for c, (ms, gb) in chunk_ms.items()) + f" ({card})")
+              f"memory {synth_peak:.3f} GB above what was held before; generate_rir_batch B={SYNTH_B} (the tap "
+              f"kernel and the high-pass): median {rir_ms:.3f} ms, {SYNTH_B / rir_ms * 1e3:.1f} RIRs/s "
+              f"({SYNTH_B * SYNTH_IMAGES / rir_ms / 1e6:.3f} G image sources/s), peak {rir_peak:.3f} GB ({card})")
+    time_rir_taps(11, dev, card)
     wall_us, busy_us, top = device_breakdown(lambda _: data.synthesize_batch(g, SYNTH_B, cfg, device=dev), [None],
                                              top=8)
     if busy_us == 0:
@@ -4229,8 +4325,9 @@ def annulus_sources(cfg, b: int, rng):
 
 
 def rir_oracle_and_cull(dev, cfg, card: str) -> None:
-    """Phase 18 (a): the card's RIRs in float32, three ways (no cull, the room cull, the geometry-boxed cull),
-    against the port's native library in float64 on the host, at TOOLS_SOURCES sources on run J's annulus;
+    """Phase 18 (a): the card's RIRs in float32 (the tap kernel), three ways (no cull, the room cull, the
+    geometry-boxed cull), against the port's native library in float64 on the host and against the plain
+    version (``_block_matmul``) on the card, at TOOLS_SOURCES sources on run J's annulus;
     then ``scripts/bench_rir_cull.py``'s A/B of the three on the card at its geometry (B = TOOLS_AB_B, the same
     annulus, 6,400 taps, T60 0.4 s): warmed up, then interleaved round-robin, a synchronize around each call,
     median and min of TOOLS_AB_ROUNDS calls a variant, in RIRs/s beside the native library's on this host."""
@@ -4238,7 +4335,7 @@ def rir_oracle_and_cull(dev, cfg, card: str) -> None:
     import torch
     from acoustic_locating_vq_vae_torch import native
     from acoustic_locating_vq_vae_torch.data import geometry_boxes
-    from acoustic_locating_vq_vae_torch.dsp import generate_rir_batch
+    from acoustic_locating_vq_vae_torch.dsp import generate_rir_batch, highpass_habets
 
     t0 = time.perf_counter()
     lib = native.build()
@@ -4266,15 +4363,25 @@ def rir_oracle_and_cull(dev, cfg, card: str) -> None:
     pos = annulus_sources(cfg, TOOLS_SOURCES, rng)
     oracle, oracle_ms = host(pos)
     src = torch.tensor(pos, dtype=torch.float32, device=dev)
-    errs = {name: max_rel(generate_rir_batch(src, recv, **card_kw, **kw), oracle) for name, kw in variants.items()}
+    kernel = {name: generate_rir_batch(src, recv, **card_kw, **kw) for name, kw in variants.items()}
+    plain = {name: highpass_habets(plain_taps_on_card(src, recv, rt60, dict(card_kw, **kw)), int(cfg.fs))
+             for name, kw in variants.items()}
+    errs = {name: max_rel(h, oracle) for name, h in kernel.items()}
+    gaps = {name: max_rel(h, plain[name]) for name, h in kernel.items()}
     phase(18, f"(a) {TOOLS_SOURCES} RIRs of {cfg.n_sample} taps on run J's annulus {TOOLS_ANNULUS} m, T60 {rt60} s: "
-              f"the card in float32 against the native library in float64 (max |card - native| / max |native|, "
-              f"limit {SYNTH_LIMITS['rir']}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              f"the tap kernel on the card in float32 against the native library in float64 (max |card - native| / "
+              f"max |native|, limit {SYNTH_LIMITS['rir']}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + "; the plain version (_block_matmul) on the card in float32 against the library: "
+              + ", ".join(f"{k} {max_rel(h, oracle):.3g}" for k, h in plain.items())
+              + f", and against the kernel (limit {RIR_PLAIN_LIMIT}): " + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
               + f"; native library built in {build_s:.2f} s ({Path(lib).name}), {threads} OpenMP threads on "
               f"{cpus} CPUs, {oracle_ms:.1f} ms for the {TOOLS_SOURCES}")
     bad = {k: v for k, v in errs.items() if not v <= SYNTH_LIMITS["rir"]}
+    bad.update({f"{k} vs the plain version": v for k, v in gaps.items() if not v <= RIR_PLAIN_LIMIT})
     if bad:
-        raise AssertionError(f"card RIRs off the native float64 oracle: {bad}, limit {SYNTH_LIMITS['rir']}")
+        raise AssertionError(f"card RIRs off the native float64 oracle (limit {SYNTH_LIMITS['rir']}) or the plain "
+                             f"version (limit {RIR_PLAIN_LIMIT}): {bad}")
+    del kernel, plain
 
     pos = annulus_sources(cfg, TOOLS_AB_B, rng)
     src = torch.tensor(pos, dtype=torch.float32, device=dev)
@@ -4550,7 +4657,7 @@ def main() -> int:
         accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
         time_training_kernels(dev, card)
         time_stage_kernels(dev, card)
-        print_kernels_line(max_err, accum_err)
+        print_kernels_line(vq_errors(max_err, accum_err))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
@@ -4562,7 +4669,7 @@ def main() -> int:
         time_serving_kernels(dev, card)
         time_training_kernels(dev, card)
         time_stage_kernels(dev, card)
-        print_kernels_line(max_err, accum_err)
+        print_kernels_line(vq_errors(max_err, accum_err))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
@@ -4571,12 +4678,14 @@ def main() -> int:
         max_err = check_nearest(vq, nearest_indices_cuda, dev)
         mesh_phase(dev, card)
         accum_err = check_accum(vq, codebook_grad_cuda, codebook_stats_cuda, dev)
-        print_kernels_line(max_err, accum_err)
+        print_kernels_line(vq_errors(max_err, accum_err))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
     if TOOLS in sys.argv[1:]:
         tools_phase(dev, (nearest_indices_cuda, codebook_grad_cuda, codebook_stats_cuda), card)
+        time_rir_taps(18, dev, card)
+        print_kernels_line({"rir_taps": RIR_ERRORS["rir_taps"]})
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
@@ -4811,28 +4920,37 @@ def main() -> int:
     # ---- phase 18: the native RIR oracle and the cull A/B, the demo CLI, the reference export, the corpus
     tools_phase(dev, counters, card, composite)
 
-    print_kernels_line(max_err, accum_err)
+    print_kernels_line({**vq_errors(max_err, accum_err), "rir_taps": RIR_ERRORS["rir_taps"]})
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
-def print_kernels_line(max_err: float, accum_err: float) -> None:
+# the kernels line's entries: source, the Pallas kernel it replaces (or None), and how a shape key reads
+KERNEL_LINES = {
+    "vq_nearest": ("vq_nearest.cu", "src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:49", "N={}, D={}, K={}"),
+    "vq_codebook_grad": ("vq_codebook_accum.cu", "src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:68",
+                         "N={}, D={}, K={}"),
+    "vq_codebook_stats": ("vq_codebook_accum.cu", "src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:150",
+                          "N={}, D={}, K={}"),
+    "rir_taps": ("rir_taps.cu", None, "B={}, nsample={}, plan pairs={}"),
+}
+
+
+def print_kernels_line(errors: dict) -> None:
     """The ``kernels`` line: one entry for each kernel and shape that was timed and that the main path ran,
-    with the launches it made at that shape; every kernel of the path has an entry."""
-    names = {"vq_nearest": ("vq_nearest.cu", 49, max_err), "vq_codebook_grad": ("vq_codebook_accum.cu", 68, accum_err),
-             "vq_codebook_stats": ("vq_codebook_accum.cu", 150, accum_err)}
-    entries = [{"name": name, "route": "cuda", "source": f"src/acoustic_locating_vq_vae_torch/csrc/{names[name][0]}",
-                "replaces": f"src/acoustic_locating_vq_vae_tpu/ops/vq_pallas.py:{names[name][1]}",
-                "shape": f"N={n}, D={d}, K={k}", "launches": SHAPE_LAUNCHES[(name, n, d, k)],
-                "max_abs_err": names[name][2], **timing}
-               for (name, n, d, k), timing in sorted(SHAPE_TIMINGS.items(), key=lambda kv: (list(names).index(kv[0][0]),
-                                                                                           kv[0][1:]))
-               if SHAPE_LAUNCHES[(name, n, d, k)] > 0]
-    missing = set(names) - {e["name"] for e in entries}
+    with the launches it made at that shape; every kernel in ``errors`` (name: its worst error against its
+    plain version or oracle) has an entry."""
+    entries = [{"name": name, "route": "cuda", "source": f"src/acoustic_locating_vq_vae_torch/csrc/{KERNEL_LINES[name][0]}",
+                "replaces": KERNEL_LINES[name][1], "shape": KERNEL_LINES[name][2].format(*shape),
+                "launches": SHAPE_LAUNCHES[(name, *shape)], "max_abs_err": errors[name], **timing}
+               for (name, *shape), timing in sorted(SHAPE_TIMINGS.items(), key=lambda kv: (list(KERNEL_LINES).index(
+                   kv[0][0]), kv[0][1:]))
+               if name in errors and SHAPE_LAUNCHES[(name, *shape)] > 0]
+    missing = set(errors) - {e["name"] for e in entries}
     if missing:
         raise AssertionError(f"no timed shape of {sorted(missing)} was launched by the main path: {dict(SHAPE_LAUNCHES)}")
     print("launches of the main path's checked and timed runs by kernel and shape: "
-          + ", ".join(f"{name} ({n}, {d}, {k}) {c}" for (name, n, d, k), c in sorted(SHAPE_LAUNCHES.items())),
+          + ", ".join(f"{name} {tuple(shape)} {c}" for (name, *shape), c in sorted(SHAPE_LAUNCHES.items())),
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
 

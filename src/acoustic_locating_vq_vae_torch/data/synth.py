@@ -40,7 +40,7 @@ from ..dsp.filters import fft_convolve
 from ..dsp.rir import generate_rir_batch
 from ..dsp.specs import rir_spec_ratio, source_coordinates, wiener_estimate
 from ..dsp.stft import spectrogram
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, static_tensor
 from ..utils.profiling import span
 from .config import DatasetConfig
 from .speech import speech_draws, speech_from_draws
@@ -438,8 +438,8 @@ def rirs_from_draws(
     with span("synth.rir"):
         theta = draws.theta
         batch, dt, dev = theta.shape[0], theta.dtype, theta.device
-        receiver = torch.tensor(config.receiver_position, dtype=dt).to(dev)
-        room = torch.tensor(config.room_dimensions, dtype=dt).to(dev)
+        receiver = static_tensor(tuple(config.receiver_position), dt, dev)
+        room = static_tensor(tuple(config.room_dimensions), dt, dev)
         src = source_coordinates(theta, receiver, room, radius=draws.radius, z_loc=config.Z_LOC_SOURCE)
         rir_kw = dict(room=tuple(config.room_dimensions), nsample=config.n_sample, fs=float(config.fs), c=config.c,
                       chunk=rir_chunk)

@@ -20,6 +20,18 @@ of its own in place of the JAX package's ``vmap`` over sources:
     exact at d of several thousand samples;
   * the 100 Hz high-pass is :func:`..filters.highpass_habets`.
 
+That is the plain version, which serves CPU tensors. On a CUDA tensor the
+taps are built by the hand-written kernel ``csrc/rir_taps.cu`` through the
+registered operator :func:`rir_taps` (its CUDA implementation is
+``ops/rir_cuda.py:rir_taps_cuda``), or the call raises: the same taps, each
+output sample summed in float64 in a fixed order from a static plan
+(:func:`_tap_plan`: for each segment of the output, the lattice rows whose
+taps can land in it), so two runs on the card are bitwise equal too. The plan
+bounds each row by the positions that the cull's intervals allow (the room,
+or the boxes), with or without ``cull``: on the card, ``cull=False`` gives
+the culled result, exact while the positions lie inside those intervals.
+``chunk`` and ``block`` shape the plain version's walk alone.
+
 ``method="scatter"`` accumulates the same taps with ``scatter_add_``: a
 cross-check of the matmul formulation on the CPU, refused on the card. The
 arithmetic follows the floating dtype of ``sources`` (float32, as the JAX
@@ -36,16 +48,20 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import full_fp32
+from ..ops.rir_cuda import rir_taps_cuda
+from ..utils.device import full_fp32, static_tensor
 from .filters import highpass_habets
 
-__all__ = ["beta_from_rt60", "beta_from_rt60_traced", "generate_rir", "generate_rir_batch"]
+__all__ = ["RIR_TAPS_OP", "beta_from_rt60", "beta_from_rt60_traced", "generate_rir", "generate_rir_batch", "rir_taps"]
+
+# the tap kernel's operator, in the package's own namespace
+RIR_TAPS_OP = "acoustic_locating_vq_vae_torch::rir_taps"
 
 
 def beta_from_rt60(room: Sequence[float], rt60: float, c: float = 340.0) -> float:
@@ -151,6 +167,77 @@ def _chunked_lattice(room, nsample, fs, c, cull, source_box, receiver_box, chunk
     return images.reshape(n_chunks, chunk, 6), dist_lb.reshape(n_chunks, chunk), dist_ub.reshape(n_chunks, chunk)
 
 
+# the card's streaming multiprocessors (H100): a launch should give each a few blocks
+_CARD_SMS = 132
+
+
+def _segment_size(nsample: int, batch: int) -> int:
+    """Output samples per block of the tap kernel (one a thread): 128 where
+    that gives the card four blocks an SM or more, else 64. (At B = 64 and
+    6,400 taps 128 took 4.95 ms, 256 5.75 ms and 64 5.16 ms on an H100:
+    PERF.md.)"""
+    return 128 if batch * -(-nsample // 128) >= 4 * _CARD_SMS else 64
+
+
+@functools.lru_cache(maxsize=16)
+def _tap_plan(room, nsample, fs, c, cull, source_box, receiver_box, order, tw, seg):
+    """The tap kernel's static plan (numpy): the output cut into segments of
+    ``seg`` samples, and for each segment the lattice rows whose taps can
+    land in it, in the lattice's order.
+
+    A row's taps lie in ``[floor(d) - tw/2 + 1, floor(d) + tw/2]`` and its
+    distance d in ``[dist_lb, dist_ub]`` (:func:`_image_grid_bounds`, the
+    room's or the boxes' intervals); ``floor(d)`` is widened by one sample
+    each way for the rounding of d in float32. Rows whose ``floor(d)``
+    cannot lie below ``nsample`` and rows of more reflections than
+    ``order >= 0`` allows are left out. Returns ``(entries (P, 4) int32 [mx,
+    my, mz, qx | qy << 1 | qz << 2], slot_ptr (n_seg + 1,) int32, slot_seg
+    (n_seg,) int32, rows, max_pow)``: the segments' lists one after another,
+    the segment with the longest list first (slot k holds segment
+    ``slot_seg[k]``, its rows ``entries[slot_ptr[k]:slot_ptr[k + 1]]``),
+    ``rows`` the lattice rows listed and ``max_pow`` the largest power of a
+    wall's beta that a listed row takes."""
+    images, dist_lb, dist_ub = _image_grid_bounds(
+        room, nsample, fs, c, cull=cull, source_box=source_box, receiver_box=receiver_box)
+    half = tw // 2
+    fd_lo = np.floor(dist_lb).astype(np.int64) - 1
+    fd_hi = np.floor(dist_ub).astype(np.int64) + 1
+    keep = fd_lo < nsample
+    if order >= 0:
+        m, q = images[:, 0:3].astype(np.int64), images[:, 3:6].astype(np.int64)
+        keep &= np.abs(2 * m - q).sum(axis=1) <= order
+    images, fd_lo, fd_hi = images[keep], fd_lo[keep], fd_hi[keep]
+    first = np.maximum(fd_lo - half + 1, 0) // seg
+    last = np.minimum(fd_hi + half, nsample - 1) // seg
+    n_seg = -(-nsample // seg)
+    reach = last - first + 1
+    row = np.repeat(np.arange(images.shape[0]), reach)
+    segment = np.repeat(first, reach) + (np.arange(row.shape[0]) - np.repeat(np.cumsum(reach) - reach, reach))
+    per_seg = np.bincount(segment, minlength=n_seg)
+    slot_seg = np.argsort(-per_seg, kind="stable")
+    slot_of = np.empty(n_seg, np.int64)
+    slot_of[slot_seg] = np.arange(n_seg)
+    by_slot = np.argsort(slot_of[segment], kind="stable")  # keeps the lattice's order within a segment
+    packed = np.stack([images[:, 0], images[:, 1], images[:, 2],
+                       images[:, 3] | (images[:, 4] << 1) | (images[:, 5] << 2)], axis=1).astype(np.int32)
+    slot_ptr = np.concatenate([[0], np.cumsum(per_seg[slot_seg])]).astype(np.int32)
+    max_pow = int(np.abs(images[:, 0:3]).max(initial=0)) + 1
+    return (np.ascontiguousarray(packed[row[by_slot]]), slot_ptr, slot_seg.astype(np.int32), int(images.shape[0]),
+            max_pow)
+
+
+@functools.lru_cache(maxsize=16)
+def _card_plan(room, nsample, fs, c, cull, source_box, receiver_box, order, tw, seg, dtype, device):
+    """:func:`_tap_plan` on ``device``, with the taps' table ``(2, tw + 1)``
+    of cos and sin of ``2 pi n / tw`` in ``dtype``: copied once per geometry."""
+    entries, slot_ptr, slot_seg, rows, max_pow = _tap_plan(
+        room, nsample, fs, c, cull, source_box, receiver_box, order, tw, seg)
+    n = np.arange(tw + 1, dtype=np.float64)
+    table = np.stack([np.cos(2.0 * np.pi * n / tw), np.sin(2.0 * np.pi * n / tw)])
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return on(entries), on(slot_ptr), on(slot_seg), on(table).to(dtype), rows, max_pow
+
+
 def _betas(room, c, batch, dtype, device, rt60, beta, beta_traced) -> torch.Tensor:
     """The (batch, 6) wall reflection coefficients from exactly one of a
     static ``rt60``, a static ``beta`` (scalar or six) or a tensor
@@ -172,7 +259,7 @@ def _betas(room, c, batch, dtype, device, rt60, beta, beta_traced) -> torch.Tens
         vals = tuple(float(b) for b in beta)
         if len(vals) != 6:
             raise ValueError("beta must be scalar or length-6")
-    return torch.tensor(vals, dtype=dtype).to(device).expand(batch, 6)
+    return static_tensor(vals, dtype, torch.device(device)).expand(batch, 6)
 
 
 def generate_rir_batch(
@@ -212,7 +299,9 @@ def generate_rir_batch(
     that cull to the positions' bounds (exact while the positions lie inside
     them; ``data.synth`` derives them from the geometry it draws from).
     ``block``: the accumulation block g (must be even and divide ``tw``,
-    else ``tw``); ``chunk``: images per step of the walk.
+    else ``tw``); ``chunk``: images per step of the walk. Both shape the
+    plain version's walk, which serves CPU tensors; a CUDA tensor's taps are
+    the kernel's (``csrc/rir_taps.cu``), with the plan's own segments.
     """
     if sources.ndim != 2 or sources.shape[1] != 3:
         raise ValueError(f"sources must be (B, 3), got {tuple(sources.shape)}")
@@ -238,13 +327,60 @@ def generate_rir_batch(
         raise ValueError(f"block_matmul requires even tw (got {tw}): the hoisted tap parity assumes "
                          "(-1)^p == (-1)^n within a window; use method='scatter' for odd tap counts")
 
+    sources = sources.to(dtype)
+    receiver = torch.as_tensor(receiver).to(device=device, dtype=dtype)
+    kw = dict(room=tuple(float(v) for v in room), nsample=int(nsample), fs=float(fs), c=float(c), order=int(order),
+              tw=int(tw), cull=bool(cull), source_box=source_box, receiver_box=receiver_box)
+    if device.type == "cuda":
+        imp = _kernel_taps(sources, receiver, betas, **kw)
+    elif device.type == "cpu":
+        imp = _plain_taps(sources, receiver, betas, method=method, chunk=int(chunk), block=block, **kw)
+    else:
+        raise ValueError(f"no image-source tap build for device {device}: CPU tensors take the plain version, "
+                         "CUDA tensors the kernel")
+    return highpass_habets(imp, int(fs)) if hp else imp
+
+
+@torch.library.custom_op(RIR_TAPS_OP, mutates_args=(), device_types="cuda")
+def rir_taps(sources: torch.Tensor, receiver: torch.Tensor, betas: torch.Tensor, entries: torch.Tensor,
+             slot_ptr: torch.Tensor, slot_seg: torch.Tensor, table: torch.Tensor, nsample: int, seg: int,
+             max_pow: int, room: List[float], c_ts: float) -> torch.Tensor:
+    """The tap kernel (``ops/rir_cuda.py:rir_taps_cuda``) as one registered
+    operator, so that a profile sees the launch as an operation inside the
+    caller's span. CUDA only: CPU tensors take the plain version."""
+    # the module's name is read at each call, so a wrapper put in its place (a launch counter) is the one called
+    return rir_taps_cuda(sources, receiver, betas, entries, slot_ptr, slot_seg, table, nsample, seg, max_pow, room,
+                         c_ts)
+
+
+@rir_taps.register_fake
+def _rir_taps_fake(sources, receiver, betas, entries, slot_ptr, slot_seg, table, nsample, seg, max_pow, room, c_ts):
+    return sources.new_empty((sources.shape[0], nsample))
+
+
+def _kernel_taps(sources, receiver, betas, *, room, nsample, fs, c, order, tw, cull, source_box, receiver_box):
+    """The unfiltered taps of CUDA tensors: the registered operator
+    ``rir_taps`` over the geometry's plan, one launch."""
+    seg = _segment_size(nsample, sources.shape[0])
+    entries, slot_ptr, slot_seg, table, _, max_pow = _card_plan(
+        room, nsample, fs, c, cull, source_box, receiver_box, order, tw, seg, sources.dtype, sources.device)
     cTs = c / fs
-    s = sources.to(dtype) / cTs
-    r = torch.as_tensor(receiver).to(device=device, dtype=dtype) / cTs
+    return rir_taps(sources.contiguous(), receiver.contiguous(), betas, entries, slot_ptr, slot_seg, table, nsample,
+                    seg, max_pow, [v / cTs for v in room], cTs)
+
+
+def _plain_taps(sources, receiver, betas, *, room, nsample, fs, c, order, tw, cull, source_box, receiver_box,
+                method, chunk, block):
+    """The unfiltered taps, plain version: the chunked walk of the lattice,
+    summed by ``_block_matmul`` (or ``scatter_add_``). Serves CPU tensors;
+    ``chip_smoke.py`` and the card tests also run it on the card, as the
+    kernel's yardstick."""
+    device, dtype, batch = sources.device, sources.dtype, sources.shape[0]
+    cTs = c / fs
+    s = sources / cTs
+    r = receiver / cTs
     L = torch.tensor(np.asarray(room, np.float64) / cTs, dtype=dtype).to(device)
-    images_np, lbc, ubc = _chunked_lattice(
-        tuple(float(v) for v in room), int(nsample), float(fs), float(c), bool(cull), source_box, receiver_box,
-        int(chunk))
+    images_np, lbc, ubc = _chunked_lattice(room, nsample, fs, c, cull, source_box, receiver_box, chunk)
     images = torch.from_numpy(images_np).to(device)
     half = tw // 2
 
@@ -286,8 +422,6 @@ def generate_rir_batch(
                 idx = torch.clamp(p_abs + tw, 0, nsample + 2 * tw - 1).reshape(batch, -1).long()
                 acc.scatter_add_(1, idx, vals)
             imp = acc[:, tw : tw + nsample]
-    if hp:
-        imp = highpass_habets(imp, int(fs))
     return imp
 
 

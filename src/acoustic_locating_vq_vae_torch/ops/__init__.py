@@ -1,9 +1,11 @@
 """NN building blocks: conv, transposed conv and dense layers, residual
-stacks, latent jitter, the vector quantizer and its CUDA kernels."""
+stacks, latent jitter, the vector quantizer and its CUDA kernels, and the
+wrapper of the image-source tap kernel."""
 
 from .conv import Conv1d, ConvTranspose1d, Dense
 from .jitter import Jitter, jitter, jitter_decisions, jitter_sharded
 from .residual import Residual, ResidualStack
+from .rir_cuda import rir_taps_cuda
 from .vq import (
     VQ_NEAREST_OP,
     VQ_NEAREST_SCORED_OP,
@@ -51,4 +53,5 @@ __all__ = [
     "codebook_grad_cuda",
     "codebook_stats_cuda",
     "nearest_indices_cuda",
+    "rir_taps_cuda",
 ]

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("vq_nearest.cu", "vq_codebook_accum.cu")
+SOURCES = ("vq_nearest.cu", "vq_codebook_accum.cu", "rir_taps.cu")
 
 
 def _nvcc() -> str:

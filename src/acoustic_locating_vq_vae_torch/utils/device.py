@@ -1,14 +1,24 @@
 """Device rules shared by the port's entry points: the device a caller asks
-for, and the float32 precision of convolutions and matrix products."""
+for, the float32 precision of convolutions and matrix products, and static
+values kept on the device."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Union
 
 import torch
 
-__all__ = ["deterministic_convs", "full_fp32", "resolve_device"]
+__all__ = ["deterministic_convs", "full_fp32", "resolve_device", "static_tensor"]
+
+
+@functools.lru_cache(maxsize=64)
+def static_tensor(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A tensor of static ``values`` on ``device``, copied there once and
+    shared by every caller, who must not write to it (a copy from pageable
+    host memory waits for the card)."""
+    return torch.tensor(values, dtype=dtype).to(device)
 
 
 @contextlib.contextmanager

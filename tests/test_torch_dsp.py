@@ -321,3 +321,141 @@ def test_rir_options_and_refusals():
         dsp.generate_rir_batch(torch.zeros(1, 3, device="meta"), rec, beta=BETA, method="scatter", **kw)
     with pytest.raises(ValueError, match="unknown method"):
         dsp.generate_rir(src, rec, beta=BETA, method="loop", **kw)
+
+
+# ---------------------------------------------------------------- the tap kernel's static plan
+
+CELL = JaxDatasetConfig()  # the on-the-fly cell's geometry: 4 x 5 x 3 m, 6,400 taps, 16 kHz
+PLAN_CASES = {
+    # (room, nsample, cull, boxed, order, seg)
+    "cell_boxed": (tuple(CELL.room_dimensions), CELL.n_sample, True, True, -1, 256),
+    "cell_room": (tuple(CELL.room_dimensions), CELL.n_sample, True, False, -1, 256),
+    "small_unculled_order2": ((2.0, 2.5, 1.8), 1024, False, False, 2, 64),
+}
+
+
+def _plan_positions(case, room, boxed, rng):
+    """Sources and receivers in meters that the plan's intervals allow: the
+    box's corners and draws inside it (the boxed cell: the 1 m source circle
+    at its fixed height, the fixed receiver), else the room's."""
+    if boxed:
+        (slo, shi), (rlo, rhi) = (np.asarray(box, np.float64) for box in jax_geometry_boxes(CELL, CELL.R))
+    else:
+        slo = rlo = np.zeros(3)
+        shi = rhi = np.asarray(room, np.float64)
+    corners = np.unique(np.stack(np.meshgrid(*zip(slo, shi), indexing="ij"), -1).reshape(-1, 3), axis=0)
+    src = np.concatenate([corners, rng.uniform(slo, shi, (2, 3))])
+    rec = np.concatenate([[rlo, rhi], rng.uniform(rlo, rhi, (len(src) - 2, 3))])
+    return src, rec
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_tap_plan_lists_every_reachable_row(case):
+    """By brute force over the whole lattice in float64: every (row,
+    segment) pair whose taps a position inside the cull's intervals puts in
+    that segment is in the segment's list, no list holds a row twice, and no
+    row beyond ``order`` is listed."""
+    room, nsample, cull, boxed, order, seg = PLAN_CASES[case]
+    boxes = dict(zip(("source_box", "receiver_box"), jax_geometry_boxes(CELL, CELL.R))) if boxed else {}
+    entries, slot_ptr, slot_seg, rows, max_pow = trir._tap_plan(
+        room, nsample, FS, 340.0, cull, boxes.get("source_box"), boxes.get("receiver_box"), order, 128, seg)
+    n_seg = -(-nsample // seg)
+    assert slot_ptr[0] == 0 and slot_ptr[-1] == entries.shape[0] and np.all(np.diff(slot_ptr) >= 0)
+    assert sorted(slot_seg.tolist()) == list(range(n_seg))
+    lens = np.diff(slot_ptr)
+    assert np.all(lens[:-1] >= lens[1:])  # the longest list first
+    seg_of = np.repeat(slot_seg, lens).astype(np.int64)
+    key = lambda m, qbits: (((m[:, 0] + 64) * 128 + m[:, 1] + 64) * 128 + m[:, 2] + 64) * 8 + qbits  # noqa: E731
+    listed = seg_of * 2**24 + key(entries[:, :3].astype(np.int64), entries[:, 3].astype(np.int64))
+    listed = np.sort(listed)
+    assert np.all(listed[1:] > listed[:-1])
+    assert np.unique(key(entries[:, :3].astype(np.int64), entries[:, 3].astype(np.int64))).size == rows
+    assert max_pow == np.abs(entries[:, :3]).max() + 1
+
+    lattice = trir._image_grid_bounds(room, nsample, FS, 340.0, cull=False)[0].astype(np.int64)
+    m, q = lattice[:, :3], lattice[:, 3:]
+    refl = np.abs(2 * m - q).sum(1)
+    if order >= 0:
+        assert np.abs(2 * entries[:, :3] - ((entries[:, 3:] >> np.arange(3)) & 1)).sum(1).max() <= order
+        assert (refl > order).any()  # the case does exclude rows
+    cTs, half = 340.0 / FS, 64
+    L = np.asarray(room) / cTs
+    src, rec = _plan_positions(case, room, boxed, np.random.default_rng(3))
+    s, r = src / cTs, rec / cTs  # (positions, 3)
+    d = np.sqrt(sum(((1 - 2 * q[:, a]) * s[:, a, None] - r[:, a, None] + 2 * m[:, a] * L[a]) ** 2 for a in range(3)))
+    fd = np.floor(d).astype(np.int64)  # (positions, rows)
+    hit = (fd < nsample) & ((refl <= order) if order >= 0 else True)
+    # d is continuous over the box, so a row reaches every segment between the least and the greatest it reaches
+    first = np.where(hit, np.maximum(fd - half + 1, 0) // seg, n_seg).min(0)
+    last = np.where(hit, np.minimum(fd + half, nsample - 1) // seg, -1).max(0)
+    reached = last >= 0
+    first, last = first[reached], last[reached]
+    k = key(m[reached], q[reached, 0] | (q[reached, 1] << 1) | (q[reached, 2] << 2))
+    reach = last - first + 1
+    row = np.repeat(np.arange(k.size), reach)
+    segment = np.repeat(first, reach) + np.arange(row.size) - np.repeat(np.cumsum(reach) - reach, reach)
+    need = segment * 2**24 + k[row]
+    found = listed[np.minimum(np.searchsorted(listed, need), listed.size - 1)] == need
+    assert found.all(), f"{int((~found).sum())} reachable pairs not listed"
+
+
+def _kernel_in_numpy(sources, receiver, betas, room, nsample, plan, seg, tw=128, c=340.0):
+    """The tap kernel's arithmetic (``csrc/rir_taps.cu``) over its plan in
+    float64 numpy: each segment's listed rows, the window-local hoisted taps
+    with an even origin, each output sample summed in list order."""
+    entries, slot_ptr, slot_seg, _, _ = plan
+    cts, half = c / FS, tw // 2
+    s, r, L = sources / cts, receiver / cts, np.asarray(room) / cts
+    n_tab = np.arange(tw + 1)
+    out = np.zeros((sources.shape[0], nsample))
+    for k, segment in enumerate(slot_seg):
+        e = entries[slot_ptr[k] : slot_ptr[k + 1]].astype(np.int64)
+        p = segment * seg + np.arange(seg)
+        p = p[p < nsample]
+        m, q = e[:, :3], (e[:, 3:] >> np.arange(3)) & 1
+        pos = np.where(q[None] == 1, -s[:, None], s[:, None]) - r + 2 * m * L  # (B, R, 3)
+        d = np.sqrt((pos**2).sum(-1))
+        expo = np.stack([np.abs(m[:, 0] - q[:, 0]), np.abs(m[:, 0]), np.abs(m[:, 1] - q[:, 1]), np.abs(m[:, 1]),
+                         np.abs(m[:, 2] - q[:, 2]), np.abs(m[:, 2])], 1)
+        gain = np.prod(betas[:, None, :] ** expo[None], -1) / (4 * np.pi * np.maximum(d, 1e-8) * cts)
+        fd = np.floor(d)
+        start = fd.astype(np.int64) - half + 1
+        k0 = start & ~1
+        ce, se = np.cos(2 * np.pi * (d - k0) / tw), np.sin(2 * np.pi * (d - k0) / tw)
+        spe = np.where(fd.astype(np.int64) & 1, -1.0, 1.0) * np.sin(np.pi * (d - fd))
+        n = p - k0[..., None]  # (B, R, P)
+        active = (fd < nsample)[..., None] & (p >= start[..., None]) & (p < start[..., None] + tw)
+        n = np.clip(n, 0, tw)
+        t = p - d[..., None]
+        window = 0.5 * (1 + np.cos(2 * np.pi * n_tab / tw)[n] * ce[..., None] + np.sin(2 * np.pi * n_tab / tw)[n]
+                        * se[..., None])
+        sin_pt = np.where(n & 1, 1.0, -1.0) * spe[..., None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            sinc = np.where(t == 0, 1.0, sin_pt / (np.pi * t + 1e-30))
+        out[:, p] = np.where(active, gain[..., None] * window * sinc, 0.0).sum(1)
+    return out
+
+
+@pytest.mark.parametrize("opts", ["rt60", "rt60_traced", "order2_unculled", "six_betas"])
+def test_tap_plan_and_kernel_arithmetic_match_the_plain_version(opts):
+    """The kernel's plan and arithmetic, run in float64 numpy, give the plain
+    version's float64 RIRs (before the high-pass) to 1e-12 of the max, for
+    sources anywhere in a small room, each option the card takes."""
+    room, nsample = (3.0, 3.5, 2.5), 1024
+    rng = np.random.default_rng(8)
+    sources = rng.uniform(0.0, 1.0, (3, 3)) * np.asarray(room)
+    receiver = np.asarray([1.1, 2.0, 1.3])
+    kw = dict(room=room, nsample=nsample, fs=FS, hp=False, chunk=512)
+    order, cull = (2, False) if opts == "order2_unculled" else (-1, True)
+    if opts == "rt60_traced":
+        rt60 = np.asarray([0.2, 0.45, 0.8])
+        betas = np.asarray([[trir.beta_from_rt60(room, t)] * 6 for t in rt60])
+        want = dsp.generate_rir_batch(t_(sources), t_(receiver), t_(rt60), **kw)
+    else:
+        six = (0.9, 0.5, 0.7, 0.8, 0.6, 0.75) if opts == "six_betas" else (trir.beta_from_rt60(room, 0.4),) * 6
+        betas = np.tile(six, (3, 1))
+        extra = dict(beta=six) if opts == "six_betas" else dict(rt60=0.4)
+        want = dsp.generate_rir_batch(t_(sources), t_(receiver), order=order, cull=cull, **extra, **kw)
+    plan = trir._tap_plan(room, nsample, FS, 340.0, cull, None, None, order, 128, 64)
+    got = _kernel_in_numpy(sources, receiver, betas, room, nsample, plan, 64)
+    assert want.dtype == torch.float64 and rel_err(got, want) < 1e-12

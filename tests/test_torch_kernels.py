@@ -13,11 +13,18 @@ import copy
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
-from acoustic_locating_vq_vae_torch.data import DatasetConfig, SampleBatch
-from acoustic_locating_vq_vae_torch.dsp import znorm
+from acoustic_locating_vq_vae_torch import native
+from acoustic_locating_vq_vae_torch.data import (
+    DatasetConfig, SampleBatch, bank_thetas, draw_synthesis, geometry_boxes, make_rir_bank, rirs_from_draws,
+)
+from acoustic_locating_vq_vae_torch.dsp import generate_rir_batch, highpass_habets, source_coordinates, znorm
+from acoustic_locating_vq_vae_torch.dsp import rir as trir
 from acoustic_locating_vq_vae_torch.eval import evaluate_joint_location, evaluate_location, full_fp32, make_serving_fn
 from acoustic_locating_vq_vae_torch.ops import vq
+from acoustic_locating_vq_vae_torch.dsp.rir import rir_taps
+from acoustic_locating_vq_vae_torch.ops.rir_cuda import rir_taps_cuda
 from acoustic_locating_vq_vae_torch.ops.vq_cuda import codebook_grad_cuda, codebook_stats_cuda, nearest_indices_cuda
 from acoustic_locating_vq_vae_torch.train import (
     EchoedSpeechTask, EncoderFinetuneTask, JointLocationTask, LocationTask, Preempted, SpeechVQVAETask, Trainer,
@@ -429,3 +436,181 @@ def test_trainer_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(SpeechVQVAETask(width_scale=1 / 32))
+
+
+# ---------------------------------------------------------------- the image-source tap kernel
+
+
+def _cell_geometry(r_hi=None):
+    """The on-the-fly cell's geometry (room 4 x 5 x 3 m, 6,400 taps, 16 kHz,
+    the cull boxed at the 1 m source circle) as generate_rir_batch's
+    keywords."""
+    cfg = DatasetConfig()
+    sbox, rbox = geometry_boxes(cfg, cfg.R if r_hi is None else r_hi)
+    return cfg, dict(room=tuple(cfg.room_dimensions), nsample=cfg.n_sample, fs=float(cfg.fs), c=cfg.c,
+                     source_box=sbox, receiver_box=rbox)
+
+
+def _circle_sources(cfg, b, seed, device, dtype=torch.float32, radius=None):
+    g = torch.Generator().manual_seed(seed)
+    theta = (torch.rand(b, generator=g, dtype=torch.float64) * 2 - 1) * np.pi
+    receiver = torch.tensor(cfg.receiver_position, dtype=dtype, device=device)
+    src = source_coordinates(theta.to(device=device, dtype=dtype), receiver,
+                             torch.tensor(cfg.room_dimensions, dtype=dtype, device=device),
+                             radius=cfg.R if radius is None else radius, z_loc=cfg.Z_LOC_SOURCE)
+    return src, receiver
+
+
+def _plain_on_card(src, receiver, kw, betas, order=-1, cull=True):
+    """The plain version (dsp/rir.py:_block_matmul) run on the card's tensors, then the high-pass."""
+    with full_fp32():
+        imp = trir._plain_taps(src, receiver, betas, room=kw["room"], nsample=kw["nsample"], fs=kw["fs"], c=kw["c"],
+                               order=order, tw=128, cull=cull, source_box=kw.get("source_box"),
+                               receiver_box=kw.get("receiver_box"), method="block_matmul", chunk=8192, block=32)
+    return highpass_habets(imp, int(kw["fs"]))
+
+
+def _static_betas(kw, rt60, b, dtype, device):
+    return torch.full((b, 6), trir.beta_from_rt60(kw["room"], rt60, kw["c"]), dtype=dtype, device=device)
+
+
+def _rel(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+def test_rir_kernel_matches_the_native_library_on_card(card):
+    """At the cell's geometry, the kernel's RIRs in float32 lie within 1e-4
+    of their max (chip_smoke.py's SYNTH_LIMITS["rir"]) from the native C++
+    library in float64, and in float64 within 1e-9."""
+    if not native.is_available():
+        pytest.skip("no C++ toolchain for the native ISM library")
+    cfg, kw = _cell_geometry()
+    src, receiver = _circle_sources(cfg, 8, 1, card)
+    want = native.generate_rir_native(src.double().cpu(), cfg.receiver_position, kw["room"], kw["nsample"], kw["fs"],
+                                      rt60=cfg.reverberation_time, c=cfg.c)
+    got = generate_rir_batch(src, receiver, rt60=cfg.reverberation_time, **kw)
+    assert got.dtype == torch.float32 and _rel(got, want) < 1e-4
+    got64 = generate_rir_batch(src.double(), receiver.double(), rt60=cfg.reverberation_time, **kw)
+    assert got64.dtype == torch.float64 and _rel(got64, want) < 1e-9
+
+
+@pytest.mark.cuda
+def test_rir_kernel_matches_the_plain_version_on_card_and_repeats_bitwise(card):
+    """At the cell's geometry and batch (B = 64): the kernel in float32
+    within 1e-4 of the plain version's max on the card in float64, and in
+    float64 within 1e-10; the plain version in float32 within 5e-4 of the
+    kernel's (its float32 sums read up to 2.2e-4 from float64 at this seed,
+    the kernel's float64 accumulator 2.1e-5); two launches bitwise equal,
+    and a batch of one bitwise its row of the batch."""
+    cfg, kw = _cell_geometry()
+    src, receiver = _circle_sources(cfg, 64, 2, card)
+    t60 = cfg.reverberation_time
+    plain = _plain_on_card(src, receiver, kw, _static_betas(kw, t60, 64, torch.float32, card))
+    plain64 = _plain_on_card(src.double(), receiver.double(), kw, _static_betas(kw, t60, 64, torch.float64, card))
+    got = generate_rir_batch(src, receiver, rt60=t60, **kw)
+    assert _rel(got, plain64) < 1e-4 and _rel(got, plain) < 5e-4
+    assert _rel(generate_rir_batch(src.double(), receiver.double(), rt60=t60, **kw), plain64) < 1e-10
+    for _ in range(2):
+        assert torch.equal(generate_rir_batch(src, receiver, rt60=t60, **kw), got)
+    # a source's RIR does not depend on its batch, nor on the segments the batch's size picks
+    assert torch.equal(generate_rir_batch(src[5:6], receiver, rt60=t60, **kw), got[5:6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["rt60_traced", "order", "unculled", "room_cull", "six_betas"])
+def test_rir_kernel_options_on_card(card, option):
+    """Each option the tap build takes: the kernel on float64 sources
+    against the plain version in float64 on the card (1e-10 of the max), on
+    float32 sources within 1e-4 of it."""
+    cfg, kw = _cell_geometry()
+    b, t60 = 16, cfg.reverberation_time
+    src, receiver = _circle_sources(cfg, b, 3, card)
+    f64 = dict(dtype=torch.float64, device=card)
+    rt60 = torch.linspace(0.15, 0.8, b, **f64)
+    six = (0.9, 0.5, 0.7, 0.8, 0.6, 0.75)
+    call, plain = dict(rt60=t60), dict(betas=_static_betas(kw, t60, b, **f64))
+    if option == "rt60_traced":
+        call = dict(rt60_traced=rt60)
+        plain = dict(betas=trir.beta_from_rt60_traced(kw["room"], rt60, kw["c"])[:, None].expand(b, 6))
+    elif option == "order":
+        call["order"] = plain["order"] = 3
+    elif option in ("unculled", "room_cull"):
+        kw = {k: v for k, v in kw.items() if not k.endswith("_box")}
+        call["cull"] = plain["cull"] = option == "room_cull"
+    elif option == "six_betas":
+        call, plain = dict(beta=six), dict(betas=torch.tensor(six, **f64).expand(b, 6))
+    want = _plain_on_card(src.double(), receiver.double(), kw, **plain)
+    got64 = generate_rir_batch(src.double(), receiver.double(), **call, **kw)
+    if option == "rt60_traced":
+        call["rt60_traced"] = rt60.float()
+    got = generate_rir_batch(src, receiver, **call, **kw)
+    assert got64.dtype == torch.float64 and _rel(got64, want) < 1e-10
+    assert got.dtype == torch.float32 and _rel(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_rir_bank_on_card_goes_through_the_kernel(card):
+    """A make_rir_bank cell is bitwise generate_rir_batch at its grid (one
+    launch a batch of angles) and within 1e-4 of the plain version in
+    float64 on the card."""
+    cfg = DatasetConfig()
+    before = rir_taps_cuda.launches
+    bank = make_rir_bank(cfg, n_theta=8, rt60s=[0.3, 0.6], radii=[0.7, 1.2], batch=4, device=card)
+    assert rir_taps_cuda.launches - before == 2 * 2 * 2
+    _, kw = _cell_geometry(r_hi=1.2)
+    receiver = torch.tensor(cfg.receiver_position, device=card)
+    src = source_coordinates(torch.from_numpy(bank_thetas(8)).to(card), receiver,
+                             torch.tensor(cfg.room_dimensions, device=card), radius=1.2, z_loc=cfg.Z_LOC_SOURCE)
+    assert torch.equal(bank[1, 1, :4], generate_rir_batch(src[:4], receiver, rt60=0.6, **kw))
+    want = _plain_on_card(src.double(), receiver.double(), kw, _static_betas(kw, 0.6, 8, torch.float64, card))
+    assert _rel(bank[1, 1], want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_rir_kernel_counters_and_trace_on_card(card):
+    """One launch a synthesized batch's RIRs, with the plan's rows; the
+    profiler sees the kernel inside the program's ``synth.rir`` span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = DatasetConfig()
+    draws = draw_synthesis(torch.Generator(card).manual_seed(5), 64, cfg)
+    rirs_from_draws(draws, cfg)
+    launches, rows = rir_taps_cuda.launches, rir_taps_cuda.rows
+    h = rirs_from_draws(draws, cfg)
+    assert rir_taps_cuda.launches - launches == 1
+    plan_rows = trir._tap_plan(tuple(float(v) for v in cfg.room_dimensions), cfg.n_sample, float(cfg.fs),
+                               float(cfg.c), True, *geometry_boxes(cfg, draws.r_hi), -1, 128,
+                               trir._segment_size(cfg.n_sample, 64))[0].shape[0]
+    assert rir_taps_cuda.rows - rows == plan_rows > 179443
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = rirs_from_draws(draws, cfg)
+        torch.cuda.synchronize()
+    assert torch.equal(again, h)
+    events = prof.events()
+    kernel = sum(e.time_range.elapsed_us() for e in events
+                 if "rir_taps_kernel" in e.name and e.device_type == DeviceType.CUDA)
+    span = [e for e in events if e.name == "synth.rir" and e.device_type == DeviceType.CPU]
+    assert kernel > 0 and len(span) == 1 and span[0].device_time_total >= kernel
+
+
+def test_rir_kernel_wrapper_refuses_cpu_tensors():
+    """The tap kernel's wrapper never computes on the CPU: it raises and
+    counts no launch; the registered operator has no CPU kernel; and
+    generate_rir_batch on CPU tensors takes the plain version (no launch)."""
+    cfg, kw = _cell_geometry()
+    plan = trir._tap_plan(kw["room"], 512, kw["fs"], kw["c"], True, kw["source_box"], kw["receiver_box"], -1, 128,
+                          64)
+    entries, slot_ptr, slot_seg = (torch.from_numpy(a) for a in plan[:3])
+    src = torch.tensor([[2.0, 2.0, 1.5]])
+    args = (src, torch.tensor([2.5, 2.0, 1.5]), torch.full((1, 6), 0.8), entries, slot_ptr, slot_seg,
+            torch.zeros(2, 129), 512, 64, plan[4], [188.0, 235.0, 141.0], 340.0 / 16000.0)
+    counts = rir_taps_cuda.launches, rir_taps_cuda.rows
+    with pytest.raises(ValueError, match="CUDA"):
+        rir_taps_cuda(*args)
+    with pytest.raises(NotImplementedError):
+        rir_taps(*args)
+    generate_rir_batch(src, args[1], rt60=0.4, room=kw["room"], nsample=512, fs=kw["fs"])
+    assert counts == (rir_taps_cuda.launches, rir_taps_cuda.rows)

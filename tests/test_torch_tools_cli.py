@@ -139,5 +139,5 @@ def test_every_jax_module_has_a_counterpart():
     assert len(modules) > 40 and "native/ism.py" in modules and "utils/viz.py" in modules
     missing = [m for m in modules if not (port_pkg / m).is_file()]
     assert missing == ["ops/vq_pallas.py"]
-    assert {p.name for p in (port_pkg / "csrc").glob("*.cu")} == {"vq_nearest.cu", "vq_codebook_accum.cu"}
+    assert {p.name for p in (port_pkg / "csrc").glob("*.cu")} == {"vq_nearest.cu", "vq_codebook_accum.cu", "rir_taps.cu"}
     assert (port_pkg / "native" / "ism.cpp").is_file()
