@@ -18,6 +18,7 @@ from .synth import (
     SynthDraws,
     bank_thetas,
     draw_synthesis,
+    echoed_from_draws,
     geometry_boxes,
     make_dataset,
     make_rir_bank,
@@ -31,7 +32,7 @@ from .synth import (
 
 __all__ = [
     "DatasetConfig", "HostStagedDataset", "SampleBatch", "SpecsDataset", "SynthDraws", "bank_thetas",
-    "combine_arrays_with_min_dim", "decode_flac", "draw_synthesis", "geometry_boxes", "load_librispeech",
+    "combine_arrays_with_min_dim", "decode_flac", "draw_synthesis", "echoed_from_draws", "geometry_boxes", "load_librispeech",
     "load_wav_dir", "make_dataset", "make_host_dataset", "make_rir_bank", "max_source_radius", "observed_power_spec",
     "prune_batch", "read_flac", "rirs_from_draws", "sample_without_replacement", "save_dataset",
     "save_dataset_reference_format", "spec_dataset_preprocessing", "synthesize_batch", "synthesize_from_draws",

@@ -52,6 +52,7 @@ __all__ = [
     "bank_thetas",
     "dataset_batches",
     "draw_synthesis",
+    "echoed_from_draws",
     "geometry_boxes",
     "make_dataset",
     "make_rir_bank",
@@ -453,6 +454,45 @@ def rirs_from_draws(
         return h.expand(batch, -1)
 
 
+def _sample_rirs(draws: SynthDraws, config: DatasetConfig, fixed_rir: bool, rir_chunk: int, geom_cull: bool,
+                 rir_bank: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each sample's RIR: exact, or gathered from ``rir_bank`` where the
+    draws picked the bank."""
+    if draws.bank_index is None:
+        return rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull)
+    if rir_bank is None:
+        raise ValueError("draws with bank cells need the rir_bank they were drawn from")
+    bank = _bank_view(rir_bank)
+    h = bank[tuple(draws.bank_index.to(bank.device).unbind(1))].to(draws.theta.device, draws.theta.dtype)
+    if draws.use_bank is not None:
+        h = torch.where(draws.use_bank[:, None], h, rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull))
+    return h
+
+
+def _echo(draws: SynthDraws, h: torch.Tensor) -> torch.Tensor:
+    """The speech convolved with each RIR ('same'), plus the drawn sensor noise."""
+    echoed = fft_convolve(draws.speech, h, mode="same")
+    if draws.snr_db is not None:
+        echoed = add_sensor_noise(echoed, draws.snr_db, draws.noise, draws.clean)
+    return echoed
+
+
+def echoed_from_draws(
+    draws: SynthDraws,
+    config: DatasetConfig = DatasetConfig(),
+    fixed_rir: bool = False,
+    rir_chunk: int = 8192,
+    geom_cull: bool = True,
+    rir_bank: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The echoed waveforms ``(B, audio_samples)`` of ``draws`` that
+    :func:`synthesize_from_draws` takes its spectrograms of (same options),
+    for a model that reads waveforms, as the neural codec does."""
+    h = _sample_rirs(draws, config, fixed_rir, rir_chunk, geom_cull, rir_bank)
+    with span("synth.spectra"):
+        return _echo(draws, h)
+
+
 def synthesize_from_draws(
     draws: SynthDraws,
     config: DatasetConfig = DatasetConfig(),
@@ -468,19 +508,9 @@ def synthesize_from_draws(
     to the draws' dtype); where ``use_bank`` is false the RIR is exact."""
     theta, speech = draws.theta, draws.speech
     batch, dev = theta.shape[0], theta.device
-    if draws.bank_index is None:
-        h = rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull)
-    else:
-        if rir_bank is None:
-            raise ValueError("draws with bank cells need the rir_bank they were drawn from")
-        bank = _bank_view(rir_bank)
-        h = bank[tuple(draws.bank_index.to(bank.device).unbind(1))].to(dev, theta.dtype)
-        if draws.use_bank is not None:
-            h = torch.where(draws.use_bank[:, None], h, rirs_from_draws(draws, config, fixed_rir, rir_chunk, geom_cull))
+    h = _sample_rirs(draws, config, fixed_rir, rir_chunk, geom_cull, rir_bank)
     with span("synth.spectra"):
-        echoed = fft_convolve(speech, h, mode="same")
-        if draws.snr_db is not None:
-            echoed = add_sensor_noise(echoed, draws.snr_db, draws.noise, draws.clean)
+        echoed = _echo(draws, h)
         speech_spec = _complex_spectrogram(speech, config)  # (B, F, T) complex, every frame
         echoed_spec = _complex_spectrogram(echoed, config)
         rir_spec = rir_spec_ratio(speech_spec, echoed_spec)  # each sample's max over all its frames

@@ -1,6 +1,7 @@
 """The localizer's serving closure and its exported artifact: echoed power
 spectrogram (or raw waveform) in, (angle, source radius, 3-D coordinates)
-out.
+out; and the EnCodec codec's serving closure (:func:`make_codec_serving_fn`):
+waveform in, (codes, decoded waveform) out.
 
 Counterpart of ``acoustic_locating_vq_vae_tpu/eval/serving.py:45-248``.
 Weights enter as the port's state dicts (see ``eval/weights.py:
@@ -41,13 +42,13 @@ import torch
 from ..data.config import DatasetConfig
 from ..data.synth import observed_power_spec
 from ..dsp.specs import source_coordinates
-from ..train.tasks import JointLocationTask, LocationTask
+from ..train.tasks import CodecTask, JointLocationTask, LocationTask
 from ..utils.device import full_fp32, resolve_device
 from ..utils.profiling import span
 
 __all__ = [
-    "SERVING_BLOB", "SERVING_META", "export_localizer", "full_fp32", "load_localizer", "make_serving_fn",
-    "params_fingerprint", "resolve_device", "store_provenance", "update_sidecar",
+    "SERVING_BLOB", "SERVING_META", "export_localizer", "full_fp32", "load_localizer", "make_codec_serving_fn",
+    "make_serving_fn", "params_fingerprint", "resolve_device", "store_provenance", "update_sidecar",
 ]
 
 SERVING_BLOB = "localizer.pt2"
@@ -144,6 +145,38 @@ def make_serving_fn(
     serve.device = device
     serve.predicts_radius = predicts_radius
     serve.from_audio = from_audio
+    return serve
+
+
+def make_codec_serving_fn(
+    task: CodecTask,
+    params: StateDict,
+    device: Union[str, torch.device] = "cuda",
+) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """Build ``serve(audio)`` -> ``(codes (B, n_q, T) int32, audio (B, L))``
+    on ``device``: ``audio`` is ``(B, L)`` waveforms at the task's sampling
+    rate, encoded to the codes of the task's ``bandwidth`` kbps (``n_q``
+    stages of the residual quantizer) and decoded back, ``T = ceil(L /
+    hop)``. ``params`` is the model's state dict under the published
+    checkpoint's keys; the convs' weight norm is folded as it loads. Like the
+    localizers' closure: the ``serve.call`` span, inference mode and
+    :func:`full_fp32`, and no host synchronisation inside the call.
+    ``serve.modules`` holds the model, ``serve.num_quantizers`` the stages
+    it runs."""
+    device = resolve_device(device)
+    model = _load(task.build_model, params, device)
+    n_q = model.quantizers_for_bandwidth(task.bandwidth)
+
+    @torch.inference_mode()
+    def serve(x) -> Tuple[torch.Tensor, torch.Tensor]:
+        with span("serve.call"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=device)
+            with full_fp32():
+                return model(x, n_q)
+
+    serve.modules = (model,)
+    serve.device = device
+    serve.num_quantizers = n_q
     return serve
 
 

@@ -1,6 +1,6 @@
 """NN building blocks: conv, transposed conv and dense layers, residual
-stacks, latent jitter, the vector quantizer and its CUDA kernels, and the
-wrapper of the image-source tap kernel."""
+stacks, latent jitter, the vector quantizer and its CUDA kernels, the
+residual quantizer, and the wrapper of the image-source tap kernel."""
 
 from .conv import Conv1d, ConvTranspose1d, Dense
 from .jitter import Jitter, jitter, jitter_decisions, jitter_sharded
@@ -11,6 +11,7 @@ from .vq import (
     VQ_NEAREST_SCORED_OP,
     VectorQuantizer,
     VQOutput,
+    ResidualVectorQuantizer,
     assign,
     codebook_grad,
     codebook_grad_plain,
@@ -20,6 +21,7 @@ from .vq import (
     nearest_codebook,
     nearest_indices,
     nearest_scored,
+    residual_codes,
     vq_nearest,
     vq_nearest_scored,
 )
@@ -37,6 +39,8 @@ __all__ = [
     "ResidualStack",
     "VectorQuantizer",
     "VQOutput",
+    "ResidualVectorQuantizer",
+    "residual_codes",
     "VQ_NEAREST_OP",
     "VQ_NEAREST_SCORED_OP",
     "vq_nearest",

@@ -46,6 +46,12 @@ fallback between them and no switch. The assignment is the registered
 operator :func:`vq_nearest` (``torch.ops.acoustic_locating_vq_vae_torch.
 vq_nearest``), so that training, the serving closure and an exported
 localizer all reach the kernel through one graph node.
+
+:class:`ResidualVectorQuantizer` is EnCodec's residual quantizer, serving only:
+a chain of stages, each assigning the residual the stages before it left
+(:func:`residual_codes`). It calls the operator and a codebook row lookup
+directly, not :class:`VectorQuantizer`'s forward, whose loss and perplexity
+(a ``bincount`` read back to the host) a served call has no use for.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ __all__ = [
     "VectorQuantizer", "VQOutput", "VQ_NEAREST_OP", "VQ_NEAREST_SCORED_OP", "vq_nearest", "vq_nearest_scored",
     "code_norms", "nearest_indices", "nearest_scored", "merge_nearest", "nearest_codebook", "assign",
     "codebook_grad", "codebook_stats", "codebook_grad_plain", "codebook_stats_plain",
-    "perplexity_from_indices", "global_statistics",
+    "perplexity_from_indices", "global_statistics", "ResidualVectorQuantizer", "residual_codes",
 ]
 
 
@@ -489,3 +495,67 @@ class VectorQuantizer(nn.Module):
                 F.one_hot(indices.long(), self.num_embeddings).to(flat.dtype) if need_encodings else None
             )
             return VQOutput(loss, ste, perplexity, indices, encodings)
+
+
+def residual_codes(x: torch.Tensor, codebooks) -> torch.Tensor:
+    """The residual quantizer's chain on ``x`` (N, D): stage ``i`` assigns
+    the residual left by the stages before it to its codebook (K, D) by
+    :func:`vq_nearest` (first index on exact ties) and subtracts the rows it
+    picked (EnCodec's ``EncodecResidualVectorQuantizer.encode``). Returns the
+    int32 ids ``(n_q, N)``. ``residual_codes.stages`` counts the stages run."""
+    residual, ids = x, []
+    for codebook in codebooks:
+        i = vq_nearest(residual, codebook)
+        residual = residual - codebook.index_select(0, i)
+        ids.append(i)
+    residual_codes.stages += len(ids)
+    return torch.stack(ids)
+
+
+residual_codes.stages = 0
+
+
+class _Codebook(nn.Module):
+    """One stage's codebook under EnCodec's buffer names
+    (``EncodecEuclideanCodebook``): ``embed`` (K, D) is the codebook;
+    ``inited``, ``cluster_size`` and ``embed_avg`` are its training state,
+    kept so that the state dict is the published one."""
+
+    def __init__(self, codebook_size: int, dim: int):
+        super().__init__()
+        self.register_buffer("inited", torch.ones(1))
+        self.register_buffer("cluster_size", torch.zeros(codebook_size))
+        self.register_buffer("embed", torch.zeros(codebook_size, dim))
+        self.register_buffer("embed_avg", torch.zeros(codebook_size, dim))
+
+
+class _Stage(nn.Module):
+    def __init__(self, codebook_size: int, dim: int):
+        super().__init__()
+        self.codebook = _Codebook(codebook_size, dim)
+
+
+class ResidualVectorQuantizer(nn.Module):
+    """EnCodec's residual vector quantizer (``quantizer.layers.<i>.codebook.*``):
+    ``num_quantizers`` stages of ``codebook_size`` codes of ``dim``.
+    :meth:`encode` runs the first ``n_q`` stages of the chain in the span
+    ``rvq.encode``; :meth:`decode` sums the stages' rows of given codes in the
+    span ``rvq.decode``, in stage order from zero, as EnCodec's decode does."""
+
+    def __init__(self, num_quantizers: int, codebook_size: int, dim: int):
+        super().__init__()
+        self.layers = nn.ModuleList(_Stage(codebook_size, dim) for _ in range(num_quantizers))
+
+    def encode(self, x: torch.Tensor, n_q: int) -> torch.Tensor:
+        """int32 codes ``(n_q, N)`` of the rows of ``x`` (N, D)."""
+        with span("rvq.encode"):
+            return residual_codes(x, [stage.codebook.embed for stage in self.layers[:n_q]])
+
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """The quantized rows ``(N, D)`` of ``codes`` (n_q, N)."""
+        with span("rvq.decode"):
+            out = None
+            for stage, ids in zip(self.layers, codes):
+                rows = stage.codebook.embed.index_select(0, ids)
+                out = rows if out is None else out + rows
+            return out

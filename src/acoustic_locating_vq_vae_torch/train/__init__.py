@@ -3,6 +3,7 @@
 from .loop import Preempted, Trainer, TrainHistory, checkpoint_metadata
 from .pipeline import fit_joint_recipe, run_pipeline, run_stage, stage_seed
 from .tasks import (
+    CodecTask,
     EchoedSpeechTask,
     EncoderFinetuneTask,
     JointLocationTask,
@@ -17,7 +18,7 @@ from .tasks import (
 )
 
 __all__ = [
-    "EchoedSpeechTask", "EncoderFinetuneTask", "JointLocationTask", "LocationTask", "Preempted", "RirVQVAETask",
+    "CodecTask", "EchoedSpeechTask", "EncoderFinetuneTask", "JointLocationTask", "LocationTask", "Preempted", "RirVQVAETask",
     "SpeechVQVAETask", "Task", "Trainer", "TrainHistory", "check_flatten_handoff", "checkpoint_metadata",
     "fit_joint_recipe", "graft_pretrained", "make_task", "resolved_vq_flatten", "run_pipeline", "run_stage",
     "stage_seed",

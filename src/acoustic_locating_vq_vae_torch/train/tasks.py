@@ -13,6 +13,9 @@ Counterpart of ``acoustic_locating_vq_vae_tpu/train/tasks.py``:
   train_location.py, :417-539) and ``JointLocationTask`` (:620-761), with
   their losses, the location cache and the serving path's input wiring and
   output decoding;
+* ``CodecTask``: the EnCodec neural audio codec (``models/encodec.py``),
+  beyond the reference and serving only (``eval/serving.py:
+  make_codec_serving_fn``): it builds the model and has no loss;
 * the stage handoff (``graft_pretrained``, :542-576), the VQ-flatten guard
   (``resolved_vq_flatten``, ``check_flatten_handoff``, :579-617) and
   ``make_task`` (:764-775);
@@ -54,11 +57,12 @@ from ..data.synth import SampleBatch
 from ..dsp.specs import znorm
 from ..models.conv_vqvae import ConvolutionalVQVAE
 from ..models.echoed_speech import EchoedSpeechReconModel
+from ..models.encodec import EncodecModel
 from ..models.location import JointLocationModel, LocationModule
 
 __all__ = [
     "Task", "SpeechVQVAETask", "RirVQVAETask", "EchoedSpeechTask", "EncoderFinetuneTask", "LocationTask",
-    "JointLocationTask", "rir_model", "speech_model", "graft_pretrained", "resolved_vq_flatten",
+    "JointLocationTask", "CodecTask", "rir_model", "speech_model", "graft_pretrained", "resolved_vq_flatten",
     "check_flatten_handoff", "make_task",
 ]
 
@@ -686,6 +690,58 @@ def check_flatten_handoff(donor_meta: dict, task, donor_label: str) -> None:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class CodecTask(Task):
+    """EnCodec (``models/encodec.py``), serving only: the fields are the
+    published 24 kHz configuration's keys and defaults
+    (``facebook/encodec_24khz``), ``bandwidth`` the served kbps (24: all 32
+    stages). ``width_scale`` scales ``num_filters`` and ``codebook_size`` as
+    the other tasks scale their widths, for runs at reduced width; 1 is the
+    published model. The codebook dim ``hidden_size`` is not scaled: the
+    residual chain at a few dims shrinks its residual below float32's
+    rounding of the latent within a dozen stages. Training it needs
+    EnCodec's discriminators and loss balancer, which are not ported:
+    :meth:`loss` raises."""
+
+    name: str = "codec"
+    learning_rate: float = 0.0
+    batch_size: int = 32
+    num_updates: int = 0
+    width_scale: float = 1.0
+    sampling_rate: int = 24000
+    audio_channels: int = 1
+    num_filters: int = 32
+    hidden_size: int = 128
+    upsampling_ratios: Tuple[int, ...] = (8, 5, 4, 2)
+    kernel_size: int = 7
+    last_kernel_size: int = 7
+    residual_kernel_size: int = 3
+    num_residual_layers: int = 1
+    dilation_growth_rate: int = 2
+    compress: int = 2
+    num_lstm_layers: int = 2
+    codebook_size: int = 1024
+    target_bandwidths: Tuple[float, ...] = (1.5, 3.0, 6.0, 12.0, 24.0)
+    bandwidth: float = 24.0
+
+    def build_model(self, generator: Optional[torch.Generator] = None) -> EncodecModel:
+        ws = self.width_scale
+        return EncodecModel(
+            sampling_rate=self.sampling_rate, audio_channels=self.audio_channels,
+            num_filters=_scale(self.num_filters, ws), hidden_size=self.hidden_size,
+            upsampling_ratios=tuple(self.upsampling_ratios), kernel_size=self.kernel_size,
+            last_kernel_size=self.last_kernel_size, residual_kernel_size=self.residual_kernel_size,
+            num_residual_layers=self.num_residual_layers, dilation_growth_rate=self.dilation_growth_rate,
+            compress=self.compress, num_lstm_layers=self.num_lstm_layers,
+            codebook_size=_scale(self.codebook_size, ws), target_bandwidths=tuple(self.target_bandwidths))
+
+    def model_inputs(self, batch: SampleBatch) -> Tuple:
+        raise NotImplementedError("the codec is served on waveforms (eval/serving.py:make_codec_serving_fn)")
+
+    def loss(self, model, batch, train, generator=None):
+        raise NotImplementedError("training EnCodec needs its discriminators and loss balancer, which are not ported")
+
+
 _TASKS = {
     "speech": SpeechVQVAETask,
     "rir": RirVQVAETask,
@@ -693,6 +749,7 @@ _TASKS = {
     "finetune": EncoderFinetuneTask,
     "location": LocationTask,
     "location_joint": JointLocationTask,
+    "codec": CodecTask,
 }
 
 

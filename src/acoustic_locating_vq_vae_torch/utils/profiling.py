@@ -14,7 +14,9 @@ context, and records nothing. Every profiler records the spans: the one
 The program's spans, by layer: the trainer's ``train.sample``,
 ``train.step``, ``train.backward`` and ``train.otf_batch``; synthesis's
 ``synth.rir`` and ``synth.spectra``; the quantizer's ``vq.quantize`` and
-``vq.perplexity``; the serving closure's ``serve.call``. :func:`span` is
+``vq.perplexity``; the serving closure's ``serve.call``; the codec's
+``codec.encode`` and ``codec.decode`` (``models/encodec.py``) and its residual
+quantizer's ``rvq.encode`` and ``rvq.decode`` (``ops/vq.py``). :func:`span` is
 defined in ``ops/span.py``, which imports nothing of the port, so that the
 quantizer's module stays importable alone.
 """

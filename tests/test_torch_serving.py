@@ -185,7 +185,7 @@ def test_port_imports_no_jax():
                 "cli/train_speech.py", "cli/train_rir.py", "cli/train_echoed_speech.py",
                 "cli/encoder_training_echoed_model.py", "cli/train_location.py", "cli/test_data_set.py",
                 "cli/summarize_sweep.py", "native/__init__.py", "native/ism.py", "eval/torch_export.py",
-                "utils/viz.py", "cli/impulse_response_demo.py", "cli/make_shifted_corpus.py"):
+                "utils/viz.py", "cli/impulse_response_demo.py", "cli/make_shifted_corpus.py", "models/encodec.py"):
         assert f"src/acoustic_locating_vq_vae_torch/{new}" in names, new
     banned = {"jax", "jaxlib", "flax", "acoustic_locating_vq_vae_tpu", "bench"}
     for path in sources:
